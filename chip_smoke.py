@@ -7,23 +7,39 @@ Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  Fails when no CUDA device is available.
-2. build — compiles the hand-written kernels (csrc/*.cu) in parallel.
-3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (K1 bid_argmin: best and choice exactly equal;
-   K2 fanout_add: exact for integer weights, rtol 1e-5 for fractional ones,
-   since the two sum in different orders), with its time, the plain
-   version's time and the least time the card could take.
-4. plan_equivalence — TickPlanner on the card against TickPlanner on the CPU
+2. build — compiles the hand-written kernels (csrc/*.cu) in parallel and
+   prints what ``-Xptxas -v`` says of every kernel variant (registers,
+   shared memory, spills).
+3. kernels — each kernel against its plain PyTorch version on the card
+   (K1 bid_argmin: best and choice exactly equal; K2
+   fanout_add: exact for integer weights, rtol 1e-5 for fractional ones,
+   since the two sum in different orders, and bitwise equal across two
+   calls): the main path's shape, a wide fleet past shared memory, rows
+   whose words are not 16-byte aligned (W32 = 5, 7), one row, all nodes
+   closed, all loads equal, and buckets of rows of a larger table with
+   ``rows`` (repeats, row 0 as padding) and ``active`` (random, prefix).
+4. kernel_times — on a synthetic tile at the main path's shape (K = 16384,
+   N = 10240, no gather): each kernel's time (also timed back to back
+   without a pre-filled stream, and with no row to work on), its plain
+   version's time, the least time the card could take, and the kernels the
+   card ran for one call (torch.profiler).
+5. plan_equivalence — TickPlanner on the card against TickPlanner on the CPU
    (plain path) from one seeded state at the config-sample shape (65536 jobs
    x 1024 nodes, W = 4): every TickPlan field, the final load and rem_cap
    identical.
-5. headline — the north-star deployment, 2^20 jobs x 10240 nodes, W = 8,
+6. path_times — on the headline's planner, fresh from its seed and
+   advanced ``PATH_WINDOWS`` windows (so the state does not depend on
+   ``--windows``), both kernels on inputs captured from the next second
+   (the 1M-row table, each bid round's rows, active mask and load_eff; the
+   Common bucket's rows and weights), held against plain and timed, with a
+   bound that counts only the rows read.
+7. headline — the north-star deployment, 2^20 jobs x 10240 nodes, W = 8,
    buckets (16384, 16384), rounds 2: 2 warm-up windows then ``--windows``
    timed windows pipelined 2 deep, with the launch counts of both kernels
    set to 0 just before and read just after; the plans are checked against
    the numpy state (every fire due, every due row fired, every placement
-   eligible).
-6. ``--profile`` only: a torch.profiler pass over a few headline windows,
+   eligible).  One more window counts the index gathers per planned second.
+8. ``--profile`` only: a torch.profiler pass over a few headline windows,
    device time by op written to chiprun_out/.
 
 Then the kernels line, the nvidia-smi line, and as the last line
@@ -49,8 +65,14 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # integer or float operation at.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
-K1_OPS_PER_BIT = 10   # 3 imul, 2 xor, 2 shift, convert, add, compare
+# K1's least work: every set bit of an active row costs its load and a
+# compare; a bit that pruning cannot skip also costs the hash and the
+# lexicographic compare (3 imul, 2 xor, 2 shift, or, sub, add, compare)
+K1_OPS_PER_BIT = 2
+K1_OPS_PER_HASH = 11
 T0 = 1_753_000_000
+SPIN_CYCLES = 20_000_000   # ~11 ms at the H100's 1.755 GHz boost clock
+PATH_WINDOWS = 4           # headline windows planned before the path capture
 
 
 def emit(obj) -> None:
@@ -66,14 +88,19 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, prefill: bool = True) -> float:
     """Mean device ms per call over ``reps`` back-to-back calls (CUDA events,
-    after one warm call)."""
+    after one warm call).  With ``prefill`` the stream first runs a ~10 ms
+    spin, during which the host enqueues every call, so the events time the
+    card and not the Python wrapper; without it a call that takes less
+    device time than its wrapper times the wrapper."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prefill:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -116,7 +143,7 @@ def phase_build():
     from cronsun_tpu_torch.ops import _build
     secs = _build.build()
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
              for n in _build.KERNELS}
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
 
@@ -138,64 +165,204 @@ def _random_tile(K, w32, seed, dev, empty_every=16):
     return packed, load, w_int, w_frac
 
 
+def _bucket(K, J, seed, dev, prefix):
+    """Row indices with repeats and row 0 as padding (the planner's padded
+    slots), and an active mask: random, or a prefix like ``valid``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(0, J, (K,), dtype=torch.int32, device=dev,
+                         generator=g)
+    rows[(K * 5) // 8:] = 0
+    rows[1:K // 4:3] = rows[0]
+    if prefix:
+        active = torch.arange(K, device=dev) < (K * 5) // 8
+    else:
+        active = torch.rand(K, device=dev, generator=g) < 0.6
+    return rows, active
+
+
+def k1_max_abs(best, best_p) -> float:
+    """max |best - best_p| over the entries where plain's best is finite."""
+    import torch
+    fin = torch.isfinite(best_p)
+    return float((best[fin] - best_p[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _check_case(k, name, packed, load, w_int, w_frac, rows=None, active=None):
+    """K1 equal to plain (best and choice exactly); K2 exact on integer
+    weights, rtol 1e-5 on fractional ones, bitwise repeatable."""
+    import torch
+    best_p, choice_p = k.bid_argmin_plain(packed, load, rows, active)
+    best, choice = k.bid_argmin(packed, load, rows=rows, active=active)
+    torch.cuda.synchronize()
+    if not (torch.equal(choice, choice_p) and torch.equal(best, best_p)):
+        bad = int((choice != choice_p).sum())
+        raise AssertionError(f"K1 {name}: {bad} choices differ")
+    if rows is not None:
+        w_int, w_frac = w_int * active, w_frac * active
+    if not torch.equal(k.fanout_add(packed, w_int, rows=rows),
+                       k.fanout_add_plain(packed, w_int, rows)):
+        raise AssertionError(f"K2 {name}: integer weights not exact")
+    out_f = k.fanout_add(packed, w_frac, rows=rows)
+    ref_f = k.fanout_add_plain(packed, w_frac, rows)
+    torch.testing.assert_close(out_f, ref_f, rtol=1e-5, atol=1e-5)
+    if not torch.equal(out_f, k.fanout_add(packed, w_frac, rows=rows)):
+        raise AssertionError(f"K2 {name}: two calls differ")
+    fin = torch.isfinite(best_p)
+    return {"case": name, "K": int(best_p.shape[0]),
+            "N": packed.shape[1] * 32,
+            "rows": None if rows is None else int(rows.shape[0]),
+            "active": None if active is None else int(active.sum()),
+            "k1_no_candidate": int((~fin).sum()),
+            "k1_max_abs": k1_max_abs(best, best_p), "k1_equal": True, "k2_int_equal": True, "k2_repeatable": True,
+            "k2_frac_max_abs": float((out_f - ref_f).abs().max())}
+
+
+def k1_work(packed, load, best, rows=None, active=None):
+    """(bytes, set bits, bits that must be hashed) of one K1 call: each
+    active row read once, plus rows/active/load_eff in and best/choice out.
+    A set bit must be hashed only when its load is finite and <= the row's
+    final best — any other bit is pruned exactly, in any scan order."""
+    import torch
+    K, w32 = (packed.shape if rows is None else (rows.shape[0],
+                                                  packed.shape[1]))
+    sel = (torch.arange(K, device=packed.device) if active is None
+           else torch.nonzero(active).flatten())
+    src = sel if rows is None else rows[sel].to(torch.int64)
+    n_bytes = (4 * len(sel) * w32 + 4 * w32 * 32 + 8 * K
+               + (0 if rows is None else 5 * K))
+    bits = hashed = 0
+    cols = torch.arange(w32 * 32, device=packed.device)
+    for i in range(0, len(sel), 2048):
+        words = packed[src[i:i + 2048]]
+        dense = ((words[:, cols // 32] >> (cols % 32).to(torch.int32)) & 1
+                 ) != 0
+        bits += int(dense.sum())
+        ok = (load[None, :] <= best[sel[i:i + 2048], None]) & torch.isfinite(
+            load)[None, :]
+        hashed += int((dense & ok).sum())
+    return n_bytes, bits, hashed
+
+
+def k2_work(packed, weights, rows=None):
+    """(bytes, set bits) of one K2 call over the rows of nonzero weight."""
+    import torch
+    K, w32 = weights.shape[0], packed.shape[1]
+    sel = torch.nonzero(weights != 0).flatten()
+    src = sel if rows is None else rows[sel].to(torch.int64)
+    n_bytes = 4 * len(sel) * w32 + 4 * K + 4 * w32 * 32 + (
+        0 if rows is None else 4 * K)
+    return n_bytes, popcount(packed[src])
+
+
+def k1_bound(work):
+    n_bytes, bits, hashed = work
+    return bound_ms(n_bytes, K1_OPS_PER_BIT * bits + K1_OPS_PER_HASH * hashed)
+
+
+def device_kernels_per_call(fn) -> int:
+    """Kernels the card ran for one call (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def phase_kernels(dev):
     import torch
     from cronsun_tpu_torch.ops import kernels as k
     checks = []
-    err = {"bid_argmin": 0.0, "fanout_add": 0.0}
-    cases = [("main", 16384, 320), ("wide_fleet", 2048, 3200),
-             ("empty_rows", 2048, 320)]
     tiles = {}
+    cases = [("main", 16384, 320), ("wide_fleet", 2048, 3200),
+             ("one_tile_past_48k", 2048, 400), ("empty_rows", 2048, 320),
+             ("unaligned_rows_w5", 999, 5), ("unaligned_rows_w7", 1001, 7),
+             ("one_row", 1, 320)]
     for seed, (name, K, w32) in enumerate(cases):
         packed, load, w_int, w_frac = _random_tile(K, w32, seed, dev)
         if name == "empty_rows":
             packed.zero_()
         tiles[name] = (packed, load, w_int, w_frac)
-        best, choice = k.bid_argmin(packed, load)
-        best_p, choice_p = k.bid_argmin_plain(packed, load)
-        torch.cuda.synchronize()
-        if not (torch.equal(choice, choice_p) and torch.equal(best, best_p)):
-            bad = int((choice != choice_p).sum())
-            raise AssertionError(f"K1 {name}: {bad} choices differ from plain")
-        fin = torch.isfinite(best_p)
-        err["bid_argmin"] = max(err["bid_argmin"], float(
-            (best[fin] - best_p[fin]).abs().max()) if fin.any() else 0.0)
-        out_i = k.fanout_add(packed, w_int)
-        ref_i = k.fanout_add_plain(packed, w_int)
-        if not torch.equal(out_i, ref_i):
-            raise AssertionError(f"K2 {name}: integer weights not exact")
-        out_f = k.fanout_add(packed, w_frac)
-        ref_f = k.fanout_add_plain(packed, w_frac)
-        torch.testing.assert_close(out_f, ref_f, rtol=1e-5, atol=1e-5)
-        err["fanout_add"] = max(err["fanout_add"],
-                                float((out_f - ref_f).abs().max()))
-        checks.append({"case": name, "K": K, "N": w32 * 32,
-                       "rows_empty": int((packed == 0).all(1).sum()),
-                       "k1_no_candidate": int((~fin).sum()),
-                       "k1_equal": True, "k2_int_equal": True,
-                       "k2_frac_max_abs": float((out_f - ref_f).abs().max())})
-    # times at the main path's shape (K = the headline SLA bucket)
+        checks.append(_check_case(k, name, packed, load, w_int, w_frac))
+    packed, load, w_int, w_frac = tiles["main"]
+    checks.append(_check_case(k, "all_closed", packed,
+                              torch.full_like(load, float("inf")),
+                              w_int, w_frac))
+    checks.append(_check_case(k, "all_loads_equal", packed,
+                              torch.zeros_like(load), w_int, w_frac))
+    # sparse rows whose winner may load 0.75 while a bit of load 0 sets the
+    # candidate bound: the masks must keep every bit within one unit
+    sparse = packed.clone()
+    g = torch.Generator(device=dev).manual_seed(99)
+    for _ in range(4):
+        sparse &= torch.randint(-2**31, 2**31, sparse.shape, dtype=torch.int32,
+                                device=dev, generator=g)
+    near = torch.full_like(load, 0.75)
+    near[:32] = 0.0
+    checks.append(_check_case(k, "winner_within_one_unit", sparse, near,
+                              w_int, w_frac))
+    # the fused gather: a bucket of rows of a larger table
+    for seed, (name, J, K, w32, prefix) in enumerate((
+            ("bucket_main", 65536, 16384, 320, True),
+            ("bucket_random_active", 65536, 16383, 320, False),
+            ("bucket_wide_fleet", 4096, 2047, 3200, True),
+            ("bucket_w5", 3000, 1001, 5, False),
+            ("bucket_w7", 3000, 999, 7, True))):
+        table, load, _, _ = _random_tile(J, w32, 100 + seed, dev)
+        _, _, w_int, w_frac = _random_tile(K, 1, 200 + seed, dev)
+        rows, active = _bucket(K, J, 300 + seed, dev, prefix)
+        checks.append(_check_case(k, name, table, load, w_int, w_frac,
+                                  rows, active))
+    emit({"phase": "kernels", "checks": checks})
+
+    # times on the synthetic tile: K = 16384, N = 10240, half the bits set,
+    # loads in {0..3}, every row active, no gather
     packed, load, w_int, _ = tiles["main"]
     K, w32 = packed.shape
-    bits = popcount(packed)
-    rows = []
-    k1_bound, k1_by = bound_ms(4 * K * w32 + 4 * w32 * 32 + 8 * K,
-                               K1_OPS_PER_BIT * bits)
-    k2_bound, k2_by = bound_ms(4 * K * w32 + 4 * K + 4 * w32 * 32, bits)
-    for name, fn, plain, b_ms, b_by, line in (
-            ("bid_argmin", lambda: k.bid_argmin(packed, load),
-             lambda: k.bid_argmin_plain(packed, load), k1_bound, k1_by, 119),
-            ("fanout_add", lambda: k.fanout_add(packed, w_int),
-             lambda: k.fanout_add_plain(packed, w_int), k2_bound, k2_by, 185)):
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"cronsun_tpu_torch/csrc/{name}.cu",
-            "replaces": f"cronsun_tpu/ops/pallas_kernels.py:{line}",
-            "launches": 0, "max_abs_err": err[name],
-            "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"K": K, "N": w32 * 32, "set_bits": bits}})
-    emit({"phase": "kernels", "checks": checks, "timings": rows})
+    best, _ = k.bid_argmin_plain(packed, load)
+    work1 = k1_work(packed, load, best)
+    b1, by1 = k1_bound(work1)
+    work2 = k2_work(packed, w_int)
+    b2, by2 = bound_ms(work2[0], work2[1])
+    k1_b2b = cuda_ms(lambda: k.bid_argmin(packed, load), 50, prefill=False)
+    # fixed cost: the same call with no row to bid for / no row weighted
+    none = torch.zeros(K, dtype=torch.bool, device=dev)
+    k1_fixed = cuda_ms(lambda: k.bid_argmin(packed, load, active=none), 50)
+    k2_fixed = cuda_ms(lambda: k.fanout_add(packed, torch.zeros_like(w_int)),
+                       50)
+    rows = [{
+        "name": "bid_argmin", "route": "cuda",
+        "source": "cronsun_tpu_torch/csrc/bid_argmin.cu",
+        "replaces": "cronsun_tpu/ops/pallas_kernels.py:119",
+        "launches": 0, "max_abs_err": max(c["k1_max_abs"] for c in checks),
+        "ms": cuda_ms(lambda: k.bid_argmin(packed, load), 50),
+        "plain_ms": cuda_ms(lambda: k.bid_argmin_plain(packed, load), 5),
+        "bound_ms": b1, "bound_by": by1, "library_ms": None,
+        "ms_back_to_back": k1_b2b,
+        "fixed_ms": k1_fixed, "work": dict(zip(
+            ("bytes", "set_bits", "must_hash"), work1)),
+        "device_kernels_per_call": device_kernels_per_call(
+            lambda: k.bid_argmin(packed, load))}, {
+        "name": "fanout_add", "route": "cuda",
+        "source": "cronsun_tpu_torch/csrc/fanout_add.cu",
+        "replaces": "cronsun_tpu/ops/pallas_kernels.py:185",
+        "launches": 0, "max_abs_err": max(
+            c["k2_frac_max_abs"] for c in checks),
+        "ms": cuda_ms(lambda: k.fanout_add(packed, w_int), 50),
+        "ms_back_to_back": cuda_ms(lambda: k.fanout_add(packed, w_int), 50,
+                                   prefill=False),
+        "fixed_ms": k2_fixed, "work": dict(zip(("bytes", "set_bits"),
+                                                work2)),
+        "plain_ms": cuda_ms(lambda: k.fanout_add_plain(packed, w_int), 5),
+        "bound_ms": b2, "bound_by": by2, "library_ms": None,
+        "device_kernels_per_call": device_kernels_per_call(
+            lambda: k.fanout_add(packed, w_int))}]
+    emit({"phase": "kernel_times", "shape": {"K": K, "N": w32 * 32},
+          "timings": rows})
     return rows
 
 
@@ -280,6 +447,7 @@ def phase_headline(dev, n_windows, profile, J=1 << 20, N=10240,
     p = planner_from_numpy(state, device=dev, rounds=2, max_fire_bucket=65536)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
+    path = phase_path_times(p, W, SLA)
     torch.cuda.reset_peak_memory_stats()
 
     k.reset_launch_counts()                     # the main path's run starts
@@ -303,6 +471,7 @@ def phase_headline(dev, n_windows, profile, J=1 << 20, N=10240,
     if not torch.isfinite(p.load).all():
         raise AssertionError("non-finite load")
     ticks = [pl for win in plans for pl in win]
+    gathers = count_gathers(p, T0 + 20_000, W, SLA)
     out = {"phase": "headline", "J": J, "N": N, "W": W, "sla": list(SLA),
            "rounds": 2, "timed_windows": n_windows,
            "interval_samples": int(len(per_tick)),
@@ -316,11 +485,104 @@ def phase_headline(dev, n_windows, profile, J=1 << 20, N=10240,
            "setup_s": setup_s, "launches": counts,
            "launches_per_planned_second": {
                n: c / ((n_windows + 2) * W) for n, c in counts.items()},
+           "gathers_per_planned_second": gathers,
            "nvidia_smi": nvidia_smi_line()}
     emit(out)
     if profile:
         profile_windows(p, W, SLA)
-    return counts
+    return counts, path
+
+
+def count_gathers(p, epoch_s, W, SLA):
+    """Index gathers per planned second over one headline window: those
+    that read the eligibility table, and all of them (each is a launch)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    ops = (aten.index.Tensor, aten.index_select.default, aten.gather.default)
+    elig_ptr = p.elig.data_ptr()
+
+    class Count(TorchDispatchMode):
+        elig = total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in ops:
+                Count.total += 1
+                Count.elig += int(args[0].data_ptr() == elig_ptr)
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        p.gather_window(p.plan_window_async(epoch_s, W, sla_bucket=SLA))
+    return {"elig_rows": Count.elig / W, "all_index_ops": Count.total / W}
+
+
+def phase_path_times(p, W, SLA):
+    """K1 and K2 on inputs captured from one headline second, planned after
+    ``PATH_WINDOWS`` windows on the fresh planner ``p``: the 1M-row table,
+    the bucket's rows with each round's active mask and load_eff (K1), the
+    Common bucket's rows and weights (K2).  Each is held equal to its plain
+    version and timed; the bound counts only the rows read."""
+    import torch
+    from cronsun_tpu_torch.ops import assign
+    from cronsun_tpu_torch.ops import kernels as k
+    epoch_s = T0 + 30_000
+    for _ in range(PATH_WINDOWS):
+        p.gather_window(p.plan_window_async(epoch_s, W, sla_bucket=SLA))
+        epoch_s += W
+    bids, fans = [], []
+    orig = assign.bid_argmin, assign.fanout_add
+
+    def bid(packed, load_eff, rows=None, active=None):
+        bids.append((packed, load_eff.clone(), rows.clone(), active.clone()))
+        return orig[0](packed, load_eff, rows=rows, active=active)
+
+    def fan(packed, weights, rows=None):
+        fans.append((packed, weights.clone(), rows.clone()))
+        return orig[1](packed, weights, rows=rows)
+
+    assign.bid_argmin, assign.fanout_add = bid, fan
+    try:
+        p.gather_window(p.plan_window_async(epoch_s, 1, sla_bucket=SLA))
+    finally:
+        assign.bid_argmin, assign.fanout_add = orig
+    out = []
+    for rnd, (table, load, rows, active) in enumerate(bids, 1):
+        best, choice = k.bid_argmin_plain(table, load, rows, active)
+        got = k.bid_argmin(table, load, rows=rows, active=active)
+        if not (torch.equal(got[0], best) and torch.equal(got[1], choice)):
+            raise AssertionError(f"K1 path round {rnd} != plain")
+        work = k1_work(table, load, best, rows, active)
+        b_ms, b_by = k1_bound(work)
+        out.append({"name": "bid_argmin", "round": rnd, "K": len(rows),
+                    "active_rows": int(active.sum()), "set_bits": work[1],
+                    "must_hash": work[2],
+                    "max_abs_err": k1_max_abs(got[0], best),
+                    "ms": cuda_ms(lambda: k.bid_argmin(
+                        table, load, rows=rows, active=active), 50),
+                    "plain_ms": cuda_ms(lambda: k.bid_argmin_plain(
+                        table, load, rows, active), 5),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    for table, weights, rows in fans:
+        got = k.fanout_add(table, weights, rows=rows)
+        ref = k.fanout_add_plain(table, weights, rows)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        n_bytes, bits = k2_work(table, weights, rows)
+        b_ms, b_by = bound_ms(n_bytes, bits)
+        out.append({"name": "fanout_add", "K": len(rows),
+                    "weighted_rows": int((weights != 0).sum()),
+                    "set_bits": bits, "max_abs_err": float(
+                        (got - ref).abs().max()),
+                    "ms": cuda_ms(lambda: k.fanout_add(
+                        table, weights, rows=rows), 50),
+                    "plain_ms": cuda_ms(lambda: k.fanout_add_plain(
+                        table, weights, rows), 5),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    if len(bids) != 2 or len(fans) != 1:
+        raise AssertionError(f"captured {len(bids)} bids, {len(fans)} fan-outs")
+    emit({"phase": "path_times", "table_rows": int(p.elig.shape[0]),
+          "advanced_windows": PATH_WINDOWS, "epoch_s": epoch_s,
+          "nvidia_smi": nvidia_smi_line(), "timings": out})
+    return out
 
 
 def profile_windows(p, W, SLA, n=4):
@@ -376,10 +638,14 @@ def main(argv=None) -> int:
     phase_build()
     rows = phase_kernels(dev)
     phase_plan_equivalence(dev)
-    counts = phase_headline(dev, args.windows, args.profile)
+    counts, path = phase_headline(dev, args.windows, args.profile)
     for r in rows:
         r["launches"] = counts[r["name"]]
-        r.pop("shape")
+        r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
+                     for t in path if t["name"] == r["name"]]
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            t["max_abs_err"] for t in path if t["name"] == r["name"]])
+        r.pop("work")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -97,27 +97,33 @@ def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
     return accept, load, rem_cap
 
 
-def _assign_excl(valid, elig_packed, load, rem_cap, cost, rounds: int):
+def _assign_excl(valid, elig_packed, load, rem_cap, cost, rounds: int,
+                 rows=None):
     """Bid/accept rounds for a bucket of EXCLUSIVE fired jobs only (the
     split-bucket planner path).  load/rem_cap are padded to the bitpacked
-    width."""
+    width.  With ``rows`` the bucket's row j is ``elig_packed[rows[j]]``
+    (the kernel gathers it).  Each round bids only for the rows still
+    unplaced: the others would be dropped by ``cand`` anyway."""
     K = valid.shape[0]
     cost = cost.to(torch.float32)
     assigned = torch.full((K,), -1, dtype=torch.int32, device=valid.device)
     for r in range(rounds):
         load_eff = torch.where(rem_cap > 0, load, float("inf"))
-        best, choice = bid_argmin(elig_packed, load_eff)
-        cand = valid & (assigned < 0) & torch.isfinite(best)
+        active = valid & (assigned < 0)
+        best, choice = bid_argmin(elig_packed, load_eff, rows=rows,
+                                  active=active)
+        cand = active & torch.isfinite(best)
         accept, load, rem_cap = waterfill_accept(
             cand, choice, cost, load, rem_cap, r == rounds - 1)
         assigned = torch.where(accept, choice, assigned)
     return assigned, load, rem_cap
 
 
-def _fanout_load(elig_packed, valid, cost, load):
-    """Accumulate Common-bucket cost into per-node load (one K2 pass)."""
+def _fanout_load(elig_packed, valid, cost, load, rows=None):
+    """Accumulate Common-bucket cost into per-node load (one K2 pass); with
+    ``rows`` the bucket's row j is ``elig_packed[rows[j]]``."""
     w = torch.where(valid, cost.to(torch.float32), 0.0)
-    return load + fanout_add(elig_packed, w)
+    return load + fanout_add(elig_packed, w, rows=rows)
 
 
 def assign(fire: torch.Tensor, elig_packed: torch.Tensor,

@@ -13,6 +13,16 @@ the bit-packed eligibility ``packed`` [K, W32] as int32 bit patterns (node
 K1 :func:`bid_argmin` — per job, min/argmin of ``load_eff + tie`` over its
 eligible nodes.  K2 :func:`fanout_add` — per node, the summed weight of the
 jobs eligible there.
+
+Both take an optional ``rows`` [K] int32: row j of the bucket is then
+``packed[rows[j]]`` of the whole eligibility table, read by the kernel
+itself (on the CPU the plain version gathers).  An index outside [0, J)
+raises IndexError on the CPU and stops the kernel on the card (``__trap``:
+the CUDA context reports an error at its next synchronisation, as after
+PyTorch's own device-side index assert).  K1 also takes ``active`` [K]
+bool: an inactive row reads nothing and gives (+inf, 0); K2's zero weights
+play that part.  Without them each computes the TPU kernel's function on
+every row of ``packed``.
 """
 
 from __future__ import annotations
@@ -90,15 +100,33 @@ def bid_block_plain(packed: torch.Tensor, load_blk: torch.Tensor,
     return best, choice
 
 
-def bid_argmin_plain(packed: torch.Tensor, load_eff: torch.Tensor):
-    """Plain K1: (best [K] f32, choice [K] int32) in the kernels' tie order."""
-    return bid_block_plain(packed, load_eff, col0=0, bitplane_ties=True)
+def _take_rows(packed: torch.Tensor, rows) -> torch.Tensor:
+    """The bucket's tile: ``packed[rows]``, or ``packed`` itself."""
+    return packed if rows is None else packed[rows.to(torch.int64)]
 
 
-def fanout_add_plain(packed: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def bid_argmin_plain(packed: torch.Tensor, load_eff: torch.Tensor,
+                     rows=None, active=None):
+    """Plain K1: (best [K] f32, choice [K] int32) in the kernels' tie order.
+
+    Row ``j`` is ``packed[rows[j]]`` when ``rows`` is given; its tie hash
+    still uses ``j``, the row's place in the bucket.  A row that ``active``
+    marks False gives (+inf, 0)."""
+    best, choice = bid_block_plain(_take_rows(packed, rows), load_eff,
+                                   col0=0, bitplane_ties=True)
+    if active is not None:
+        best = torch.where(active, best, float("inf"))
+        choice = torch.where(active, choice, 0)
+    return best, choice
+
+
+def fanout_add_plain(packed: torch.Tensor, weights: torch.Tensor,
+                     rows=None) -> torch.Tensor:
     """Plain K2: out[n] = sum_j weights[j] * bit(j, n), one [K] x [K, W32]
     product per bit plane (the TPU kernel's decomposition), so no dense
-    [K, N] tile is ever built."""
+    [K, N] tile is ever built.  Row ``j`` is ``packed[rows[j]]`` when
+    ``rows`` is given."""
+    packed = _take_rows(packed, rows)
     K, w32 = packed.shape
     out_t = torch.empty(32, w32, dtype=torch.float32, device=packed.device)
     for b in range(32):
@@ -112,108 +140,161 @@ def _check_packed(name: str, packed: torch.Tensor) -> "tuple[int, int]":
     if packed.dtype != torch.int32 or packed.dim() != 2:
         raise TypeError(f"{name}: packed must be a 2-D int32 tensor of bit "
                         f"patterns, got {packed.dtype} {tuple(packed.shape)}")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {packed.device}")
     return packed.shape
 
 
-def _check_vector(name: str, packed: torch.Tensor, vec: torch.Tensor,
-                  length: int) -> None:
-    """Raise on what the kernel does not take."""
-    if vec.dtype != torch.float32 or vec.dim() != 1 or vec.shape[0] != length:
-        raise TypeError(f"{name}: expected a [{length}] float32 vector, got "
+def _check_vector(name: str, packed: torch.Tensor, vec, length: int,
+                  dtype=torch.float32, what: str = "float32") -> None:
+    """Raise on what the kernel does not take (``vec`` None: absent)."""
+    if vec is None:
+        return
+    if vec.dtype != dtype or vec.dim() != 1 or vec.shape[0] != length:
+        raise TypeError(f"{name}: expected a [{length}] {what} vector, got "
                         f"{vec.dtype} {tuple(vec.shape)}")
     if packed.device != vec.device:
         raise ValueError(f"{name}: inputs on {packed.device} and {vec.device}")
-    if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {packed.device}")
     if packed.device.type == "cuda" and not (packed.is_contiguous()
                                              and vec.is_contiguous()):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+def _bucket_size(name: str, packed: torch.Tensor, rows) -> int:
+    """K: the bucket's rows — ``rows``' length, else the tile's.  On the
+    CPU an index outside [0, J) raises here; the kernels check their own
+    (reading them here would stall the card's stream)."""
+    if rows is None:
+        return packed.shape[0]
+    if rows.dim() != 1:
+        raise TypeError(f"{name}: rows must be 1-D, got {tuple(rows.shape)}")
+    _check_vector(name, packed, rows, rows.shape[0], torch.int32, "int32")
+    if packed.device.type == "cpu" and rows.numel() and (
+            int(rows.min()) < 0 or int(rows.max()) >= packed.shape[0]):
+        raise IndexError(f"{name}: rows must lie in [0, {packed.shape[0]})")
+    return rows.shape[0]
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+_fns: dict = {}
+
+
+def _launch(name: str, argtypes, dev: torch.device, *args) -> None:
+    """Call the C entry ``cronsun_<name>`` (built on first use) on ``dev``'s
+    current stream; raise if it reports a CUDA error."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = _build.kernel_function(name, f"cronsun_{name}",
+                                                 argtypes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-_K1_WARPS = 16   # rows per block, one warp each (csrc/bid_argmin.cu)
-_K1_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_K1_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def bid_argmin(packed: torch.Tensor, load_eff: torch.Tensor):
+def bid_argmin(packed: torch.Tensor, load_eff: torch.Tensor,
+               rows=None, active=None):
     """Per-job best node by load (K1).
 
     Args:
-      packed: [K, W32] int32 eligibility bit patterns.
+      packed: [J, W32] int32 eligibility bit patterns — the bucket's tile,
+        or with ``rows`` the whole table.
       load_eff: [W32*32] f32 effective load per node (+inf for closed nodes).
+      rows: optional [K] int32 in [0, J) — row j of the tile is
+        ``packed[rows[j]]`` (the gather runs inside the kernel; the tie hash
+        keeps using j).
+      active: optional [K] bool — a False row reads nothing and gives
+        (+inf, 0).
     Returns:
       (best [K] f32 — min load + tie, +inf if no eligible open node;
        choice [K] int32 — its node, 0 when there is none).
     """
-    K, w32 = _check_packed("bid_argmin", packed)
+    J, w32 = _check_packed("bid_argmin", packed)
     _check_vector("bid_argmin", packed, load_eff, 32 * w32)
+    K = _bucket_size("bid_argmin", packed, rows)
+    _check_vector("bid_argmin", packed, active, K, torch.bool, "bool")
     if packed.device.type == "cpu":
-        return bid_argmin_plain(packed, load_eff)
+        return bid_argmin_plain(packed, load_eff, rows, active)
     dev = packed.device
     best = torch.empty(K, dtype=torch.float32, device=dev)
     choice = torch.empty(K, dtype=torch.int32, device=dev)
     if K == 0 or w32 == 0:
         return best.fill_(float("inf")), choice.zero_()
-    fn = _build.kernel_function("bid_argmin", "cronsun_bid_argmin", _K1_ARGS)
-    grid = min(math.ceil(K / _K1_WARPS), 2 * _sm_count(dev))
-    with torch.cuda.device(dev):
-        rc = fn(packed.data_ptr(), load_eff.data_ptr(), best.data_ptr(),
-                choice.data_ptr(), K, w32, grid,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "bid_argmin")
+    _launch("bid_argmin", _K1_ARGS, dev, packed.data_ptr(), _ptr(rows),
+            _ptr(active), load_eff.data_ptr(), best.data_ptr(),
+            choice.data_ptr(), J, K, w32)
     bid_argmin.launches += 1
     return best, choice
 
 
 bid_argmin.launches = 0
 
-_K2_THREADS = 128    # word columns per block (csrc/fanout_add.cu)
-_K2_BLOCKS = 512     # pass-1 blocks aimed for; a constant, not the SM count
-_K2_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_K2_TILE_WORDS = 32  # word columns per block, one per lane (csrc/fanout_add.cu)
+_K2_BLOCKS = 128     # blocks aimed for (one per SM); a constant, so the
+                     # summation order does not depend on the card
+_K2_MIN_ROWS = 256   # least rows per chunk: 8 per warp
+_K2_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_k2_counters: dict = {}
 
 
 def fanout_chunks(K: int, w32: int) -> "tuple[int, int]":
-    """(S, rows per chunk) of K2's first pass — a function of the shape
-    alone, so fractional sums round identically on every card."""
-    word_tiles = math.ceil(w32 / _K2_THREADS)
-    s = max(1, min(math.ceil(K / 128), _K2_BLOCKS // word_tiles))
+    """(S, rows per chunk): K2 sums each chunk of rows per block and then the
+    S chunk sums in order — a function of the shape alone, so fractional
+    sums round identically on every card."""
+    word_tiles = math.ceil(w32 / _K2_TILE_WORDS)
+    s = max(1, min(math.ceil(K / _K2_MIN_ROWS), _K2_BLOCKS // word_tiles))
     rows = math.ceil(K / s)
     return math.ceil(K / rows), rows
 
 
-def fanout_add(packed: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def _zeroed_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """K2's per-word-tile arrival counters: zero between launches, because
+    the last block of each tile resets its own."""
+    c = _k2_counters.get(dev)
+    if c is None or c.numel() < n:
+        c = _k2_counters[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                            device=dev)
+    return c
+
+
+def fanout_add(packed: torch.Tensor, weights: torch.Tensor,
+               rows=None) -> torch.Tensor:
     """Per-node total weight of the jobs eligible there (K2):
     out[n] = sum_j weights[j] * bit(j, n).
 
     Args:
-      packed: [K, W32] int32 eligibility bit patterns.
-      weights: [K] f32 (0 for rows that do not take part).
+      packed: [J, W32] int32 eligibility bit patterns — the bucket's tile,
+        or with ``rows`` the whole table.
+      weights: [K] f32, non-negative; a row of weight 0 is not read.
+      rows: optional [K] int32 in [0, J) — row j of the tile is
+        ``packed[rows[j]]``.
     Returns: [W32*32] f32, natural node order.
     """
-    K, w32 = _check_packed("fanout_add", packed)
+    J, w32 = _check_packed("fanout_add", packed)
+    K = _bucket_size("fanout_add", packed, rows)
     _check_vector("fanout_add", packed, weights, K)
     if packed.device.type == "cpu":
-        return fanout_add_plain(packed, weights)
+        return fanout_add_plain(packed, weights, rows)
     dev = packed.device
     out = torch.empty(w32 * 32, dtype=torch.float32, device=dev)
     if K == 0 or w32 == 0:
         return out.zero_()
-    s, rows = fanout_chunks(K, w32)
+    s, chunk = fanout_chunks(K, w32)
     partial = torch.empty((s, w32 * 32), dtype=torch.float32, device=dev)
-    fn = _build.kernel_function("fanout_add", "cronsun_fanout_add", _K2_ARGS)
-    with torch.cuda.device(dev):
-        rc = fn(packed.data_ptr(), weights.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), K, w32, s, rows,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "fanout_add")
+    counters = _zeroed_counters(dev, math.ceil(w32 / _K2_TILE_WORDS))
+    _launch("fanout_add", _K2_ARGS, dev, packed.data_ptr(), _ptr(rows),
+            weights.data_ptr(), partial.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), J, K, w32, s, chunk)
     fanout_add.launches += 1
     return out
 

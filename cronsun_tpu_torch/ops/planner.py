@@ -88,7 +88,9 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
     The fire mask for all W seconds is one pass before the loop (the [J]
     table streams from memory once per window); fired rows compact into
     separate buckets by kind, so only exclusive fires (bucket kx) pay the
-    ``rounds`` bid sweeps and Common fires (bucket kc) one fan-out.
+    ``rounds`` bid sweeps and Common fires (bucket kc) one fan-out.  Both
+    kernels take the bucket's row indices and read the eligibility table
+    themselves: no gathered tile is built.
 
     Returns (out [W, 2 + kx + kc + A] int32, load, rem_cap): per second the
     two fire totals, the exclusive then Common row indices, and the
@@ -105,10 +107,10 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
             xidx, xvalid, xtotal = _compact(fire_col & exclusive, kx)
             cidx, cvalid, ctotal = _compact(fire_col & not_excl, kc)
         with record_function("cronsun.fanout"):
-            load = _fanout_load(elig[cidx], cvalid, cost[cidx], load)
+            load = _fanout_load(elig, cvalid, cost[cidx], load, rows=cidx)
         with record_function("cronsun.assign"):
             assigned, load, rem_cap = _assign_excl(
-                xvalid, elig[xidx], load, rem_cap, cost[xidx], rounds)
+                xvalid, elig, load, rem_cap, cost[xidx], rounds, rows=xidx)
         a = assigned.to(adt)
         if adt == torch.int16:
             a = F.pad(a, (0, kx % 2)).view(torch.int32)

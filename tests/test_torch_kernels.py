@@ -1,5 +1,6 @@
-"""Port vs JAX: the plain versions of K1 bid_argmin and K2 fanout_add, and
-the tie hash.
+"""Port vs JAX: the plain versions of K1 bid_argmin and K2 fanout_add (with
+and without the fused row gather ``rows`` and the ``active`` mask), the tie
+hash, and a numpy model of the CUDA kernel's walk of a row.
 
 Tolerances: bid ``choice`` and ``best`` exactly equal; fan-out exactly
 equal for integer weights, ``rtol=1e-5`` for fractional ones (the two sum
@@ -19,6 +20,7 @@ from cronsun_tpu.ops.pallas_kernels import fanout_add as jax_fanout
 from cronsun_tpu_torch.ops import kernels
 from cronsun_tpu_torch.ops.kernels import (
     _tie, bid_argmin, bid_block_plain, fanout_add, fanout_chunks)
+from torch_k1_model import k1_model, tie_from_bits
 from torch_parity import bits
 
 
@@ -140,3 +142,141 @@ def test_plain_path_counts_no_launches():
 def test_fanout_chunks_cover_every_row_once(K, w32):
     s, rows = fanout_chunks(K, w32)
     assert 1 <= s <= 512 and (s - 1) * rows < K <= s * rows
+
+
+def _bucket(seed, K, J, prefix):
+    """Row indices with repeats and row 0 as padding (the planner's empty
+    bucket slots), and an active mask: random, or a prefix like ``valid``."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, J, K).astype(np.int32)
+    rows[(K * 5) // 8:] = 0
+    rows[1:K // 4:3] = rows[0]
+    active = (np.arange(K) < (K * 5) // 8) if prefix else rng.random(K) < 0.6
+    return rows, active
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("K,J,w32,n_loads", [(256, 300, 3, 4), (512, 700, 17, 2),
+                                             (256, 1000, 64, 1)])
+def test_bid_plain_rows_active_match_jax(prefix, K, J, w32, n_loads):
+    table, load = _tile(K + J + w32, J, w32, n_loads)
+    rows, active = _bucket(K * w32, K, J, prefix)
+    b_pal, c_pal = jax_bid(jnp.asarray(table[rows]), jnp.asarray(load),
+                           interpret=True)
+    best, choice = bid_argmin(bits(table), torch.from_numpy(load),
+                              rows=torch.from_numpy(rows),
+                              active=torch.from_numpy(active))
+    b_pal, c_pal = np.asarray(b_pal), np.asarray(c_pal)
+    np.testing.assert_array_equal(c_pal[active], choice.numpy()[active])
+    np.testing.assert_array_equal(b_pal[active], best.numpy()[active])
+    assert np.isinf(best.numpy()[~active]).all()
+    assert (choice.numpy()[~active] == 0).all()
+
+
+@pytest.mark.parametrize("K,J,w32", [(256, 300, 3), (512, 900, 64)])
+def test_fanout_plain_rows_match_jax(K, J, w32):
+    table, _ = _tile(K * J, J, w32)
+    rows, active = _bucket(K + w32, K, J, False)
+    rng = np.random.default_rng(w32)
+    w_int = np.where(active, rng.integers(1, 9, K), 0).astype(np.float32)
+    w_frac = np.where(active, rng.random(K), 0).astype(np.float32)
+    got = fanout_add(bits(table), torch.from_numpy(w_int),
+                     rows=torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(np.asarray(jax_fanout(
+        jnp.asarray(table[rows]), jnp.asarray(w_int), interpret=True)), got)
+    got = fanout_add(bits(table), torch.from_numpy(w_frac),
+                     rows=torch.from_numpy(rows)).numpy()
+    np.testing.assert_allclose(np.asarray(jax_fanout(
+        jnp.asarray(table[rows]), jnp.asarray(w_frac), interpret=True)),
+        got, rtol=1e-5)
+
+
+def test_wrappers_reject_bad_rows_and_active():
+    packed = torch.zeros((4, 2), dtype=torch.int32)
+    load = torch.zeros(64)
+    with pytest.raises(TypeError):
+        bid_argmin(packed, load, rows=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        bid_argmin(packed, load, rows=torch.zeros(3, dtype=torch.int32),
+                   active=torch.ones(4, dtype=torch.bool))      # K mismatch
+    with pytest.raises(TypeError):
+        bid_argmin(packed, load, active=torch.ones(4, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        fanout_add(packed, torch.zeros(4), rows=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        fanout_add(packed, torch.zeros(3),
+                   rows=torch.zeros((3, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", [-1, 4])
+def test_wrappers_reject_rows_outside_the_table(bad):
+    """An index outside [0, J) raises, where plain indexing would wrap a
+    negative one; the kernels stop on it (tests/test_torch_cuda.py)."""
+    packed = torch.zeros((4, 2), dtype=torch.int32)
+    rows = torch.tensor([0, bad, 1], dtype=torch.int32)
+    with pytest.raises(IndexError):
+        bid_argmin(packed, torch.zeros(64), rows=rows)
+    with pytest.raises(IndexError):
+        fanout_add(packed, torch.zeros(3), rows=rows)
+
+
+def test_tie_conversion_without_i2f_is_exact():
+    """All 65536 values: v in the mantissa of 1.0f, minus 1.0f, equals
+    float(v) / 65536 bit for bit (the subtraction is exact)."""
+    v = np.arange(65536, dtype=np.uint32)
+    ref = v.astype(np.float32) / np.float32(65536.0)
+    np.testing.assert_array_equal(tie_from_bits(v).view(np.int32),
+                                  ref.view(np.int32))
+
+
+def _model_tile(seed, K, w32, kind):
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 2**32, (K, w32), dtype=np.uint32)
+    packed[3] = 0
+    packed[5] &= 0x00010001
+    if kind == "two_loads":
+        load = rng.integers(0, 2, w32 * 32).astype(np.float32)
+    elif kind == "all_equal":
+        load = np.full(w32 * 32, 7.0, np.float32)
+    elif kind == "within_one":  # sparse rows whose winner may load 0.75
+        for _ in range(4):      # while a bit of load 0 sets the bound
+            packed &= rng.integers(0, 2**32, (K, w32), dtype=np.uint32)
+        load = np.full(w32 * 32, 0.75, np.float32)
+    else:                                    # spread, as real loads are
+        load = rng.integers(1000, 1400, w32 * 32).astype(np.float32)
+    load[::13] = np.inf
+    if kind == "within_one":
+        load[:32] = 0.0         # every plane's least load is 0
+    return packed, load
+
+
+@pytest.mark.parametrize("kind", ["two_loads", "all_equal", "within_one",
+                                  "spread"])
+# 33 and 70 words leave lanes with one word more than others; 70 by 32 ends
+# on a partial node tile; 1 word leaves 31 lanes idle
+@pytest.mark.parametrize("w32,tile", [(40, None), (40, 16), (7, None),
+                                      (33, None), (70, 32), (1, None)])
+def test_k1_walk_model_matches_plain(kind, w32, tile):
+    """The kernel's walk (per-lane word order, pruning, candidate masks,
+    node tiles, lexicographic warp reduction) gives the plain version's
+    answer on tie-heavy tiles."""
+    packed, load = _model_tile(w32 + len(kind), 24, w32, kind)
+    best_p, choice_p = kernels.bid_argmin_plain(bits(packed),
+                                                torch.from_numpy(load))
+    best, choice = k1_model(packed, load, tile=tile)
+    np.testing.assert_array_equal(choice_p.numpy(), choice)
+    np.testing.assert_array_equal(best_p.numpy().view(np.int32),
+                                  best.view(np.int32))
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_k1_walk_model_rows_active_matches_plain(prefix):
+    table, load = _model_tile(9, 40, 12, "two_loads")
+    rows, active = _bucket(3, 24, 40, prefix)
+    best_p, choice_p = kernels.bid_argmin_plain(
+        bits(table), torch.from_numpy(load), torch.from_numpy(rows),
+        torch.from_numpy(active))
+    best, choice = k1_model(table, load, rows, active)
+    np.testing.assert_array_equal(choice_p.numpy(), choice)
+    np.testing.assert_array_equal(best_p.numpy().view(np.int32),
+                                  best.view(np.int32))
