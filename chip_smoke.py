@@ -41,6 +41,25 @@ Phases, each printing one JSON line:
    eligible).  One more window counts the index gathers per planned second.
 8. ``--profile`` only: a torch.profiler pass over a few headline windows,
    device time by op written to chiprun_out/.
+9. plan_equivalence_armed — phase 5's shape with both arms armed: a
+   3-stage DAG (every misfire policy) and Zipf tenants with a noisy one
+   over quota; caps 2 re-opened every window, so the fair share clamps;
+   completions of fired upstream rows are folded between windows.  Every
+   TickPlan field (tenant counts too) and the final load, rem_cap,
+   dep_last_fire and tb_tokens identical, card against CPU.
+10. headline_armed — phase 7's deployment with 2^17 dep rows and 64
+   tenants armed (``--windows`` timed windows, dispatched as a
+   deployment's normal windows, so tenant tokens carry), completions
+   folded from each gathered window, both kernels' launch counts set to 0
+   before its run and read after; the plans are checked in numpy against
+   the state (due rows fired or shed, no fire neither due nor
+   dep-satisfied, the noisy tenant within a replay of its bucket and its
+   final tokens equal to the replay's, victims never refused).
+   ``--profile`` adds a profiler pass.
+11. next_fire — BASELINE config 2 (10k mixed specs): 10 calls in UTC and
+   one in America/New_York 3 days before a DST change, card == CPU; then
+   2^20 rows of the same mix, timed, held against the CPU on a 65536-row
+   slice.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -71,8 +90,23 @@ PEAK_OPS_S = 67e12
 K1_OPS_PER_BIT = 2
 K1_OPS_PER_HASH = 11
 T0 = 1_753_000_000
+EPOCH = 1577836800         # FRAMEWORK_EPOCH: device epochs are relative to it
 SPIN_CYCLES = 20_000_000   # ~11 ms at the H100's 1.755 GHz boost clock
 PATH_WINDOWS = 4           # headline windows planned before the path capture
+# the armed headline: dep rows, the noisy tenant's @every 1s rows, the DAG
+# sources' @every periods (4x the headline's, so each window's burst of
+# dep fires stays inside the buckets) and the failed share of completions
+ARMED_DEP_ROWS = 1 << 17
+NOISY_ROWS = 16384
+SOURCE_PERIODS = (140, 280)
+FAIL_SHARE = 0.1
+# the noisy tenant's burst over its rate: above 1 a bucket whose carried
+# tokens were lost (reset to full) admits more than the replay allows
+NOISY_BURST = 2.0
+# profiler events that make the host wait for the device: a tensor's value
+# read back (aten::item) and a stream drained
+SYNC_EVENTS = ("aten::item", "aten::_local_scalar_dense",
+               "cudaStreamSynchronize", "cudaEventSynchronize")
 
 
 def emit(obj) -> None:
@@ -585,8 +619,12 @@ def phase_path_times(p, W, SLA):
     return out
 
 
-def profile_windows(p, W, SLA, n=4):
-    """Device time by op over ``n`` pipelined headline windows."""
+def profile_windows(p, W, SLA, n=4, name="headline", epoch_s=T0 + 50_000,
+                    after_window=None):
+    """Device time by op over ``n`` headline windows, each gathered before
+    the next (``after_window(plans)`` runs after each gather); device
+    operations (kernels, copies, memsets) per planned second, and the
+    calls that wait for the device (``SYNC_EVENTS``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -594,12 +632,17 @@ def profile_windows(p, W, SLA, n=4):
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         for i in range(n):
-            p.gather_window(p.plan_window_async(T0 + 50_000 + i * W, W,
-                                                sla_bucket=SLA))
+            plans = p.gather_window(p.plan_window_async(epoch_s + i * W, W,
+                                                        sla_bucket=SLA))
+            if after_window is not None:
+                after_window(plans)
         wall_ms = (time.perf_counter() - t) * 1e3
     from torch.autograd import DeviceType
-    rows, busy_ms = [], 0.0
+    rows, busy_ms, device_ops = [], 0.0, 0
+    syncs = dict.fromkeys(SYNC_EVENTS, 0)
     for ev in prof.key_averages():
+        if ev.key in syncs:
+            syncs[ev.key] += ev.count
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
@@ -612,23 +655,362 @@ def profile_windows(p, W, SLA, n=4):
         # kernels and copies; the cronsun.* ranges' device rows only span them
         if ev.device_type == DeviceType.CUDA and not ev.key.startswith("cronsun."):
             busy_ms += self_us / 1e3
+            device_ops += ev.count
     rows.sort(key=lambda r: -r["device_ms"])
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_headline.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{name}.json"), "w") as f:
         json.dump({"wall_ms": wall_ms, "windows": n, "W": W, "rows": rows}, f,
                   indent=1)
-    emit({"phase": "profile", "windows": n, "wall_ms": wall_ms,
+    emit({"phase": "profile", "of": name, "windows": n, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-          "top": rows[:25]})
+          "device_ops": device_ops,
+          "device_ops_per_planned_second": device_ops / (n * W),
+          "host_syncs": syncs, "top": rows[:25]})
+
+
+def phase_plan_equivalence_armed(dev, J=65536, N=1024, windows=5, W=4,
+                                 cap=2):
+    """phase_plan_equivalence's shape with both arms armed
+    (``synth.arm_mixed``): completions of the fired upstream rows are folded
+    into both planners between windows.  Caps are ``cap`` per node,
+    re-opened every window: at 4 the exclusive demand (at most ~3.5k a
+    second) stays under the 4096 slots and the fair share never clamps.
+    Counts the seconds whose fair share clamped a tenant on the card."""
+    import torch
+    from cronsun_tpu_torch.convert import planner_from_numpy
+    from cronsun_tpu_torch.ops import tenancy
+    from cronsun_tpu_torch.synth import arm_mixed, completions, synth_state
+    t = time.perf_counter()
+    state = synth_state(J, N, seed=11, node_cap=cap, empty_rows=0.02)
+    stages = arm_mixed(state, seed=12, n_dep=J // 16, n_noisy=J // 64,
+                       start_epoch_s=T0)
+    upstream = np.zeros(J, bool)
+    upstream[stages["sources"]] = upstream[stages["mids"]] = True
+    kw = dict(rounds=2, max_fire_bucket=8192)
+    gpu = planner_from_numpy(state, device=dev, **kw)
+    cpu = planner_from_numpy(state, device="cpu", **kw)
+    clamps, fair_shares = [], tenancy.fair_shares
+
+    def spy(demand, weight, cap):
+        shares = fair_shares(demand, weight, cap)
+        clamps.append((shares < demand).any())
+        return shares
+    rng = np.random.default_rng(13)
+    n = dict.fromkeys(("fired", "placed", "dep_fired", "throttled", "shed"),
+                      0)
+    for i in range(windows):
+        for p in (gpu, cpu):
+            p.set_node_capacity(list(range(N)), [cap] * N)
+        tenancy.fair_shares = spy
+        try:
+            got = gpu.plan_window(T0 + W * i, W)
+        finally:
+            tenancy.fair_shares = fair_shares
+        ref = cpu.plan_window(T0 + W * i, W)
+        _compare_plans(ref, got, f"armed window {i}")
+        rows, succ, fail = completions(got, upstream, rng, FAIL_SHARE)
+        for p in (gpu, cpu):
+            p.set_dep_epochs(rows, succ, fail)
+        for pl in got:
+            n["fired"] += pl.total_fired
+            n["placed"] += int((pl.assigned >= 0).sum())
+            n["dep_fired"] += int(state["has_dep"][pl.fired].sum())
+            n["throttled"] += int(pl.tenant_throttled.sum())
+            n["shed"] += int(pl.tenant_shed.sum())
+    for name in ("load", "rem_cap", "dep_last_fire", "tb_tokens"):
+        if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"final {name} differs")
+    n["clamped_seconds"] = sum(bool(c) for c in clamps)
+    vacuous = [k for k in ("placed", "dep_fired", "throttled",
+                           "clamped_seconds") if not n[k]]
+    if vacuous:
+        raise AssertionError(f"the comparison is vacuous: no {vacuous}")
+    emit({"phase": "plan_equivalence_armed", "J": J, "N": N, "W": W,
+          "windows": windows, "seconds_planned": windows * W,
+          "cap": cap, "dep_rows": int(state["has_dep"].sum()),
+          "tenants": len(state["tb_rate"]), **n, "identical": True,
+          "wall_s": time.perf_counter() - t})
+
+
+def armed_headline_state(J, N, n_dep, n_noisy, t_rel0):
+    """The headline's state with both arms armed: ``n_dep`` dep rows (a
+    3-stage DAG, fan-in 4, skip policy) over time-triggered sources whose
+    periods are ``SOURCE_PERIODS``; ``n_noisy`` ``@every 1s`` rows in the
+    noisy tenant (rate a tenth of its offer, burst ``NOISY_BURST`` times
+    the rate, starting full); every other row in one of 62 Zipf-sized
+    victims with 2x headroom; the dep rows in the unlimited default
+    tenant.  Returns (state, stages, noisy rows)."""
+    from cronsun_tpu_torch.synth import (arm_dag, arm_tenants, every_rates,
+                                         set_every, synth_state)
+    state = synth_state(J, N, seed=2, specs=None, node_cap=1 << 20)
+    stages = arm_dag(state, n_dep, seed=3, t_rel0=t_rel0)
+    rng = np.random.default_rng(4)
+    src = stages["sources"]
+    set_every(state, src, rng.integers(*SOURCE_PERIODS, len(src)),
+              rng.integers(0, 1 << 30, len(src)))
+    dep = np.concatenate([stages["mids"], stages["sinks"]])
+    free = np.ones(J, bool)
+    free[src] = free[dep] = False
+    noisy = rng.choice(np.flatnonzero(free), n_noisy, replace=False)
+    set_every(state, noisy, np.ones(n_noisy, np.int32),
+              np.zeros(n_noisy, np.int32))
+    arm_tenants(state, seed=5, rates=every_rates(state), noisy_rows=noisy,
+                exempt=dep)
+    state["tb_burst"][-1] = state["tb_tokens"][-1] = \
+        NOISY_BURST * state["tb_rate"][-1]
+    return state, stages, noisy
+
+
+def check_headline_armed(state, noisy, windows, folds, folded):
+    """The armed headline's plans against the numpy state, second by second
+    in planned order (``folds``: the ``(rows, succ)`` of each fold, in
+    order; ``folded[i]``: how many had been folded when window i was
+    dispatched): no overflow; every due row fired or counted as shed
+    for its tenant; every other fire a dep row whose upstreams all
+    succeeded after its previous fire; victims never refused; the noisy
+    tenant's fires within a replay of its bucket.  Returns the totals and
+    the replay's tokens after the last second."""
+    from cronsun_tpu_torch.synth import FAN_IN
+    J, T = len(state["active"]), len(state["tb_rate"])
+    every = state["is_every"] & state["active"] & ~state["paused"]
+    period = state["period"].astype(np.int64)
+    phase = state["phase_mod"].astype(np.int64)
+    tid, has_dep = state["row_tenant"], state["has_dep"]
+    ups = state["dep_cols"][:, :FAN_IN]
+    prev = state["dep_last_fire"].copy()
+    is_noisy = np.zeros(J, bool)
+    is_noisy[noisy] = True
+    rate = float(state["tb_rate"][T - 1])
+    burst = float(state["tb_burst"][T - 1])
+    tokens = float(state["tb_tokens"][T - 1])
+    succ = state["dep_succ"].copy()
+    n = dict.fromkeys(("fired", "dep_fired", "placed", "throttled", "shed",
+                       "noisy_admitted"), 0)
+    applied = 0
+    for plans, upto in zip(windows, folded):
+        for rows, s in folds[applied:upto]:
+            np.maximum.at(succ, rows, s)
+        applied = upto
+        for p in plans:
+            t = p.epoch_s - EPOCH
+            where = f"second {p.epoch_s}"
+            if p.overflow:
+                raise AssertionError(f"{where}: overflow {p.overflow}")
+            fired = np.zeros(J, bool)
+            fired[p.fired] = True
+            if fired.sum() != len(p.fired):
+                raise AssertionError(f"{where}: a row fired twice")
+            due = every & ((phase - t) % period == 0)
+            extra = np.flatnonzero(fired & ~due)
+            if not has_dep[extra].all():
+                raise AssertionError(f"{where}: a row fired that is neither "
+                                     f"due nor a dep row")
+            if not (succ[ups[extra]] > prev[extra, None]).all():
+                raise AssertionError(f"{where}: a dep row fired before all "
+                                     f"its upstreams succeeded again")
+            prev[extra] = t
+            shed = np.bincount(tid[due & ~fired], minlength=T)
+            if not np.array_equal(shed, p.tenant_shed):
+                raise AssertionError(f"{where}: missed due rows != shed")
+            if not np.array_equal(p.tenant_throttled, p.tenant_shed):
+                raise AssertionError(f"{where}: a dep fire was refused")
+            if p.tenant_throttled[1:T - 1].any():
+                raise AssertionError(f"{where}: a victim was throttled")
+            tokens = min(burst, tokens + rate)
+            adm = int(fired[noisy].sum())
+            if adm > np.floor(tokens):
+                raise AssertionError(f"{where}: the noisy tenant fired {adm}"
+                                     f" with {tokens} tokens")
+            tokens -= adm
+            n["fired"] += p.total_fired
+            n["dep_fired"] += len(extra)
+            n["placed"] += int((p.assigned >= 0).sum())
+            n["throttled"] += int(p.tenant_throttled.sum())
+            n["shed"] += int(p.tenant_shed.sum())
+            n["noisy_admitted"] += adm
+    return n, tokens
+
+
+def phase_headline_armed(dev, n_windows, profile, J=1 << 20, N=10240,
+                         SLA=(16384, 16384), W=8, n_dep=ARMED_DEP_ROWS,
+                         n_noisy=NOISY_ROWS):
+    """phase_headline's deployment and method with both arms armed
+    (:func:`armed_headline_state`); after each gather the completions of
+    the window's fired upstream rows are folded in (``FAIL_SHARE`` fail).
+    2 warm-up and ``n_windows`` timed windows, contiguous, with both
+    kernels' launch counts set to 0 before and read after; every second is
+    checked by :func:`check_headline_armed`.  Windows are dispatched as a
+    deployment's normal windows are (no ``sla_bucket``), so the tenant
+    tokens carry from window to window; the adaptive buckets are capped at
+    ``SLA`` and must stay there, as the plain headline pins them."""
+    import torch
+    from cronsun_tpu_torch.convert import planner_from_numpy
+    from cronsun_tpu_torch.ops import kernels as k
+    from cronsun_tpu_torch.synth import completions
+    t = time.perf_counter()
+    start = T0 + 2000
+    state, stages, noisy = armed_headline_state(J, N, n_dep, n_noisy,
+                                                start - EPOCH)
+    p = planner_from_numpy(state, device=dev, rounds=2,
+                           max_fire_bucket=max(SLA))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    upstream = np.zeros(J, bool)
+    upstream[stages["sources"]] = upstream[stages["mids"]] = True
+    rng = np.random.default_rng(6)
+    folds, folded, windows, buckets = [], [], [], set()
+
+    def fold(plans):
+        rows, s, f = completions(plans, upstream, rng, FAIL_SHARE)
+        p.set_dep_epochs(rows, s, f)
+        folds.append((rows, s))
+
+    def dispatch(epoch_s):
+        folded.append(len(folds))
+        handle = p.plan_window_async(epoch_s, W)
+        buckets.add((handle.kx, handle.kc))
+        return handle
+
+    def gather(handle):
+        windows.append(p.gather_window(handle))
+        fold(windows[-1])
+
+    torch.cuda.reset_peak_memory_stats()
+    k.reset_launch_counts()                     # the armed path's run starts
+    for i in range(2):                          # warm-up windows
+        gather(dispatch(start + i * W))
+    handles, stamps = [], []
+    for i in range(2, n_windows + 2):
+        handles.append(dispatch(start + i * W))
+        if len(handles) > 2:
+            gather(handles.pop(0))
+            stamps.append(time.perf_counter())
+    for h in handles:
+        gather(h)
+    counts = k.launch_counts()                  # ... and ends
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of the armed path never launched: "
+                             f"{counts}")
+    peak = torch.cuda.max_memory_allocated()
+    per_tick = np.diff(stamps) / W * 1e3
+    if buckets != {SLA}:
+        raise AssertionError(f"the adaptive buckets left {SLA}: {buckets}")
+    n, tokens = check_headline_armed(state, noisy, windows, folds, folded)
+    if float(p.tb_tokens[-1]) != tokens:
+        raise AssertionError(f"the noisy tenant's carried tokens "
+                             f"{float(p.tb_tokens[-1])} != replay {tokens}")
+    if not (n["dep_fired"] and n["shed"] and n["placed"]):
+        raise AssertionError(f"an arm did nothing: {n}")
+    if not torch.isfinite(p.load).all():
+        raise AssertionError("non-finite load")
+    secs = (n_windows + 2) * W
+    emit({"phase": "headline_armed", "J": J, "N": N, "W": W, "sla": list(SLA),
+          "rounds": 2, "dep_rows": n_dep, "tenants": p.T,
+          "noisy_rows": n_noisy, "noisy_rate": float(p.tb_rate[-1]),
+          "noisy_burst": float(p.tb_burst[-1]), "noisy_tokens_end": tokens,
+          "timed_windows": n_windows, "interval_samples": int(len(per_tick)),
+          "p50_ms_per_tick": float(np.percentile(per_tick, 50)),
+          "p99_ms_per_tick": float(np.percentile(per_tick, 99)),
+          "mean_ms_per_tick": float(per_tick.mean()),
+          **{f"{key}_per_tick": v / secs for key, v in n.items()},
+          "seconds_checked": secs, "max_memory_allocated_bytes": peak,
+          "setup_s": setup_s, "launches": counts,
+          "launches_per_planned_second": {
+              name: c / secs for name, c in counts.items()},
+          "nvidia_smi": nvidia_smi_line()})
+    if profile:
+        profile_windows(p, W, None, name="headline_armed",
+                        epoch_s=start + (n_windows + 2) * W,
+                        after_window=fold)
+    return counts
+
+
+def phase_next_fire(dev, n_specs=10_000, calls=10, big_rows=1 << 20,
+                    slice_rows=1 << 16):
+    """BASELINE config 2 as bench.py:287-309 runs it (10k mixed specs,
+    seed 0, phase at T0; ``calls`` calls at T0 + 37 i in UTC, p50 and the
+    resolved count), then one call in America/New_York 3 days before a DST
+    change, then ``big_rows`` rows of the same mix: card == CPU, exactly
+    (the big table on its first ``slice_rows`` rows)."""
+    import datetime as dt
+    from zoneinfo import ZoneInfo
+
+    import torch
+    from cronsun_tpu_torch.ops import next_fire
+    from cronsun_tpu_torch.ops.schedule_table import (build_table,
+                                                      table_from_numpy,
+                                                      table_to_numpy)
+    from cronsun_tpu_torch.ops.tick import NEXT_FIRE_CHUNK
+    from cronsun_tpu_torch.synth import bench_mixed_specs
+    t = time.perf_counter()
+    cpu = build_table(bench_mixed_specs(n_specs, seed=0), phase_epoch_s=T0,
+                      device="cpu")
+    cols = table_to_numpy(cpu)
+    gpu = table_from_numpy(cols, dev)
+
+    def timed(table, after, tz=dt.timezone.utc):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = next_fire(table, after, tz=tz)
+        return out, (time.perf_counter() - s) * 1e3
+
+    def same(got, table, after, tz=dt.timezone.utc, where=""):
+        if not np.array_equal(got, next_fire(table, after, tz=tz)):
+            raise AssertionError(f"next_fire {where} after {after}: card != "
+                                 f"CPU")
+
+    timed(gpu, T0)                              # warm
+    ms = []
+    for i in range(calls):
+        got, m = timed(gpu, T0 + 37 * i)
+        same(got, cpu, T0 + 37 * i, where="10k UTC")
+        ms.append(m)
+    resolved = int((got >= 0).sum())
+    ny = ZoneInfo("America/New_York")
+    after_ny = int(dt.datetime(2025, 10, 30, 12, tzinfo=ny).timestamp())
+    got_ny, ms_ny = timed(gpu, after_ny, ny)
+    same(got_ny, cpu, after_ny, ny, "10k New York")
+    change = (int(dt.datetime(2025, 11, 2, tzinfo=ny).timestamp()),
+              int(dt.datetime(2025, 11, 3, tzinfo=ny).timestamp()))
+    on_change_day = int(((got_ny >= change[0]) & (got_ny < change[1])).sum())
+    if resolved != n_specs or (got_ny >= 0).sum() != n_specs \
+            or not on_change_day:
+        raise AssertionError("a 10k row went unresolved, or no row fired on "
+                             "the day of the DST change")
+    idx = np.arange(big_rows) % n_specs
+    big = {name: v[idx] for name, v in cols.items()}
+    gpu_big = table_from_numpy(big, dev)
+    torch.cuda.reset_peak_memory_stats()
+    timed(gpu_big, T0)                          # warm
+    big_ms = []
+    for i in range(3):
+        got_big, m = timed(gpu_big, T0 + 37 * i)
+        big_ms.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    same(got_big[:slice_rows],
+         table_from_numpy({k: v[:slice_rows] for k, v in big.items()}, "cpu"),
+         T0 + 74, where=f"{big_rows} rows, first {slice_rows}")
+    if not (got_big >= 0).all():
+        raise AssertionError("a row of the big table went unresolved")
+    emit({"phase": "next_fire", "specs": n_specs, "calls": calls,
+          "p50_ms": float(np.median(ms)), "ms": ms, "resolved": resolved,
+          "new_york_ms": ms_ny, "new_york_after": after_ny,
+          "new_york_on_change_day": on_change_day,
+          "big_rows": big_rows, "big_ms": big_ms,
+          "big_p50_ms": float(np.median(big_ms)),
+          "big_checked_rows": slice_rows, "chunk_rows": NEXT_FIRE_CHUNK,
+          "big_max_memory_allocated_bytes": peak, "identical": True,
+          "wall_s": time.perf_counter() - t})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
-                    help="timed headline windows (default 100)")
+                    help="timed windows of each headline, plain and armed "
+                         "(default 100)")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass over headline windows")
+                    help="add torch.profiler passes over headline windows")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -639,8 +1021,12 @@ def main(argv=None) -> int:
     rows = phase_kernels(dev)
     phase_plan_equivalence(dev)
     counts, path = phase_headline(dev, args.windows, args.profile)
+    phase_plan_equivalence_armed(dev)
+    armed = phase_headline_armed(dev, args.windows, args.profile)
+    phase_next_fire(dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
+        r["launches_armed"] = armed[r["name"]]
         r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
                      for t in path if t["name"] == r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [

@@ -1,8 +1,5 @@
-"""Cron spec compiler (the port's own copy of ``cronsun_tpu.cron``'s parser).
-
-Only the parser is carried over: the planner needs compiled masks, not the
-scalar ``Schedule.next`` walk (that arrives with the batched next-fire port).
-"""
+"""Cron spec compiler and scalar schedule evaluation (the port's own copies
+of ``cronsun_tpu.cron``'s parser and ``Schedule``)."""
 
 from .goduration import DurationError, parse_duration_ns, parse_duration_seconds
 from .parser import (
@@ -13,9 +10,16 @@ from .parser import (
     parse,
     parse_standard,
 )
+from .schedule import (
+    Schedule,
+    day_matches,
+    every_next_after,
+    next_after,
+)
 
 __all__ = [
     "CronSpec", "EverySpec", "ParseError", "STAR_BIT", "parse",
-    "parse_standard", "DurationError", "parse_duration_ns",
+    "parse_standard", "Schedule", "day_matches", "every_next_after",
+    "next_after", "DurationError", "parse_duration_ns",
     "parse_duration_seconds",
 ]

@@ -13,12 +13,18 @@ matrix and the per-node loads and capacities on one device, and answers
 The per-second loop carries ``load`` and ``rem_cap``; every op in it is
 functional, so a dispatched window never writes the planner's live tensors —
 the window's results are assigned back once, in dispatch order.  On the card
-nothing in :meth:`TickPlanner.plan_window_async` synchronizes: the outputs of
-the whole window are packed into one int32 block and copied to pinned host
-memory behind an event, which :meth:`TickPlanner.gather_window` waits on.
+:meth:`TickPlanner.plan_window_async` reads no tensor value back, but
+``waterfill_accept``'s boolean-mask selections each run a ``nonzero``, which
+waits for the stream (three per bid round).  The outputs of the whole window
+are packed into one int32 block and copied to pinned host memory behind an
+event, which :meth:`TickPlanner.gather_window` waits on.
 
-The workflow-DAG and tenant-admission arms of the JAX planner are not
-ported yet; their switches raise.
+Two arms fold into each second when armed (``set_dep_enabled``,
+``set_tenants_enabled``): the workflow-DAG trigger (:mod:`.deps`) ORs dep
+fires into the time fires and carries ``dep_last_fire``; tenant admission
+(:mod:`.tenancy`) clamps each tenant's fires to its token bucket and fair
+share and carries ``tb_tokens``.  A disarmed arm is a Python branch not
+taken: the step reads none of its tensors and issues none of its ops.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from torch.profiler import record_function
 
 from ..device import DeviceLike, resolve_device
 from .assign import _assign_excl, _fanout_load, choose_impl
-from .schedule_table import ScheduleTable, build_table, update_rows
+from .deps import NEVER, dep_ready
+from .schedule_table import (ScheduleTable, build_table, column_numpy,
+                             column_tensor, update_rows)
+from .tenancy import TenantOrder, admit
 from .tick import _fire_mask, window_field_matrix
 
 _UTC = timezone.utc
@@ -79,10 +88,36 @@ def _compact(fire: torch.Tensor, k: int):
     return torch.where(valid, idx, 0), valid, total
 
 
+@dataclasses.dataclass
+class _DepArm:
+    """The dep arm's operands for one window: the folded epochs, the gate,
+    the carried ``last_fire``, and each second's framework-relative
+    epoch."""
+    succ: torch.Tensor
+    fail: torch.Tensor
+    block: torch.Tensor
+    last_fire: torch.Tensor
+    t_rel: Sequence[int]
+
+
+@dataclasses.dataclass
+class _TenantArm:
+    """The tenant arm's operands for one window: the row order, the
+    bucket columns and the carried tokens."""
+    order: TenantOrder
+    rate: torch.Tensor
+    burst: torch.Tensor
+    limited: torch.Tensor
+    weight: torch.Tensor
+    tokens: torch.Tensor
+
+
 def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
                       elig: torch.Tensor, exclusive: torch.Tensor,
                       cost: torch.Tensor, load: torch.Tensor,
-                      rem_cap: torch.Tensor, kx: int, kc: int, rounds: int):
+                      rem_cap: torch.Tensor, kx: int, kc: int, rounds: int,
+                      deps: Optional[_DepArm] = None,
+                      tenants: Optional[_TenantArm] = None):
     """W seconds, exactly the semantics of W consecutive single ticks.
 
     The fire mask for all W seconds is one pass before the loop (the [J]
@@ -92,17 +127,49 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
     kernels take the bucket's row indices and read the eligibility table
     themselves: no gathered tile is built.
 
-    Returns (out [W, 2 + kx + kc + A] int32, load, rem_cap): per second the
-    two fire totals, the exclusive then Common row indices, and the
-    exclusive placements — int16 pairs packed into int32 words when node
-    columns fit int16 (A = ceil(kx / 2)), else int32 (A = kx)."""
+    ``deps`` ORs each second's dep fires into the time fires and advances
+    the carried ``last_fire``; ``tenants`` then admits the fires through
+    the token buckets and the fair share, carrying the tokens.  A dep fire
+    that admission refuses does not advance its ``last_fire``: it retries.
+
+    Returns (out [W, 2 + kx + kc + A (+ 2T)] int32, load, rem_cap,
+    last_fire, tokens): per second the two fire totals, the exclusive then
+    Common row indices, the exclusive placements — int16 pairs packed into
+    int32 words when node columns fit int16 (A = ceil(kx / 2)), else int32
+    (A = kx) — and, with tenants, the per-tenant throttled then shed
+    counts.  ``last_fire``/``tokens`` are None for a disarmed arm."""
     with record_function("cronsun.fire_mask"):
         fire_w = _fire_mask(table, *fields_w.unbind(1)).T.contiguous()  # [W, J]
     n_cols = elig.shape[1] * 32
     adt = torch.int16 if n_cols <= 32767 else torch.int32
     not_excl = ~exclusive
+    last_fire = deps.last_fire if deps is not None else None
+    tokens = tenants.tokens if tenants is not None else None
+    if tenants is not None:
+        ex_p = exclusive[tenants.order.perm]
     outs = []
-    for fire_col in fire_w:
+    for w, fire_col in enumerate(fire_w):
+        time_col = fire_col
+        if deps is not None:
+            with record_function("cronsun.deps"):
+                dep_f, consume, round_max = dep_ready(
+                    table, deps.succ, deps.fail, deps.block, last_fire)
+                fire_col = fire_col | dep_f
+        if tenants is not None:
+            with record_function("cronsun.tenants"):
+                admitted, tokens, thr, shed = admit(
+                    fire_col, time_col, ex_p, tokens, tenants.rate,
+                    tenants.burst, tenants.limited, tenants.weight, rem_cap,
+                    tenants.order)
+                fire_col = fire_col & admitted
+        if deps is not None:
+            with record_function("cronsun.deps"):
+                # advance to the newest consumed upstream epoch, not just
+                # the tick; a throttled dep fire does not advance
+                eff = dep_f & fire_col if tenants is not None else dep_f
+                last_fire = torch.where(eff | consume,
+                                        round_max.clamp(min=deps.t_rel[w]),
+                                        last_fire)
         with record_function("cronsun.compact"):
             xidx, xvalid, xtotal = _compact(fire_col & exclusive, kx)
             cidx, cvalid, ctotal = _compact(fire_col & not_excl, kc)
@@ -114,8 +181,11 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
         a = assigned.to(adt)
         if adt == torch.int16:
             a = F.pad(a, (0, kx % 2)).view(torch.int32)
-        outs.append(torch.cat([torch.stack([xtotal, ctotal]), xidx, cidx, a]))
-    return torch.stack(outs), load, rem_cap
+        parts = [torch.stack([xtotal, ctotal]), xidx, cidx, a]
+        if tenants is not None:
+            parts += [thr, shed]
+        outs.append(torch.cat(parts))
+    return torch.stack(outs), load, rem_cap, last_fire, tokens
 
 
 class _AdaptiveBucket:
@@ -181,7 +251,9 @@ class TickPlan:
     overflow: int            # fired jobs beyond the bucket SLA
     total_fired: int = 0     # TRUE fire count this second (>= len(fired))
     n_excl: int = 0          # fired[:n_excl] are the exclusive placements
-    # per-tenant refusal counts: None until tenant admission is ported
+    # per-tenant-id refusal counts this second ([T] int32; None while the
+    # tenant arm is disarmed): throttled = all refused fires, shed = the
+    # time-triggered subset (refused dep fires retry)
     tenant_throttled: Optional[np.ndarray] = None
     tenant_shed: Optional[np.ndarray] = None
 
@@ -192,7 +264,8 @@ class _WindowHandle:
     kx: int
     kc: int
     adt: np.dtype            # numpy dtype of the packed placements
-    out: torch.Tensor        # [W, 2 + kx + kc + A] int32 on the host
+    nt: int                  # tenant ids in the per-tenant counts, 0 if none
+    out: torch.Tensor        # [W, 2 + kx + kc + A + 2 nt] int32 on the host
     ready: Optional[torch.cuda.Event]   # set when ``out`` has landed
 
 
@@ -211,7 +284,8 @@ class TickPlanner:
 
     def __init__(self, job_capacity: int, node_capacity: int,
                  tz=_UTC, rounds: int = 2,
-                 max_fire_bucket: int = 65536, device: DeviceLike = None):
+                 max_fire_bucket: int = 65536, tenant_capacity: int = 64,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.impl = choose_impl(self.device)
         self.tz = tz
@@ -227,6 +301,28 @@ class TickPlanner:
         self.cost = torch.ones(self.J, dtype=torch.float32, device=dev)
         self.load = torch.zeros(self.N, dtype=torch.float32, device=dev)
         self.rem_cap = torch.zeros(self.N, dtype=torch.int32, device=dev)
+        # workflow DAG state: folded completion epochs, the carried
+        # last-fire vector and the max_in_flight gate
+        self.dep_succ = torch.full((self.J,), NEVER, dtype=torch.int32,
+                                   device=dev)
+        self.dep_fail = torch.full((self.J,), NEVER, dtype=torch.int32,
+                                   device=dev)
+        self.dep_last_fire = torch.zeros(self.J, dtype=torch.int32,
+                                         device=dev)
+        self.dep_block = torch.zeros(self.J, dtype=torch.bool, device=dev)
+        self._dep_enabled = False
+        # tenant admission state: per-tenant bucket columns (tokens carried
+        # through the window) and the host row->tenant snapshot the
+        # admission order derives from, recomputed when it changes
+        self.T = _next_pow2(max(2, tenant_capacity))
+        self.tb_rate = torch.zeros(self.T, dtype=torch.float32, device=dev)
+        self.tb_burst = torch.zeros(self.T, dtype=torch.float32, device=dev)
+        self.tb_limited = torch.zeros(self.T, dtype=torch.bool, device=dev)
+        self.tb_weight = torch.ones(self.T, dtype=torch.float32, device=dev)
+        self.tb_tokens = torch.zeros(self.T, dtype=torch.float32, device=dev)
+        self._tenants_enabled = False
+        self._tenant_np = np.zeros(self.J, np.int32)
+        self._tn_order: Optional[TenantOrder] = None
         # adaptive fired-buckets, one per kind
         self._bx = _AdaptiveBucket(max_fire_bucket, self.J)
         self._bc = _AdaptiveBucket(max_fire_bucket, self.J)
@@ -278,26 +374,112 @@ class TickPlanner:
             self.rem_cap[self._rows(cols)] = torch.as_tensor(
                 np.asarray(caps, np.int32), device=self.device)
 
+    # -- workflow DAG state -------------------------------------------------
+
+    def _vals(self, vals, n: int, dtype) -> torch.Tensor:
+        """``vals`` (one value or n) as an [n] tensor on the device."""
+        return torch.as_tensor(np.array(np.broadcast_to(
+            np.asarray(vals, dtype), (n,))), device=self.device)
+
     @property
     def dep_enabled(self) -> bool:
-        return False
+        return self._dep_enabled
 
     def set_dep_enabled(self, flag: bool = True):
-        if flag:
-            raise NotImplementedError(
-                "workflow-DAG deps are not ported to the torch planner yet "
-                "(ROADMAP queue 1, item 9: ops/deps.py and the use_deps arm)")
+        """Arm (or disarm) the dep trigger in the plan step."""
+        self._dep_enabled = bool(flag)
+
+    def set_dep_epochs(self, rows, succ, fail):
+        """Fold completion-round epochs into the per-row vectors: a monotone
+        max, so duplicate and repeated deliveries are idempotent."""
+        if len(rows):
+            r = self._rows(rows)
+            self.dep_succ.scatter_reduce_(
+                0, r, self._vals(succ, len(rows), np.int32), "amax")
+            self.dep_fail.scatter_reduce_(
+                0, r, self._vals(fail, len(rows), np.int32), "amax")
+
+    def reset_dep_rows(self, rows, last_fire_rel=0):
+        """Row (re)initialization: epochs back to NEVER and last_fire to the
+        registration anchor, so a fresh dep row only reacts to rounds newer
+        than its registration."""
+        if len(rows):
+            r = self._rows(rows)
+            self.dep_succ[r] = NEVER
+            self.dep_fail[r] = NEVER
+            self.dep_last_fire[r] = self._vals(last_fire_rel, len(rows),
+                                               np.int32)
+            self.dep_block[r] = False
+
+    def set_dep_block(self, rows, vals):
+        """max_in_flight saturation gate (host-computed per step)."""
+        if len(rows):
+            self.dep_block[self._rows(rows)] = self._vals(vals, len(rows),
+                                                          np.bool_)
+
+    def dep_state(self) -> dict:
+        """Host copies of the mutable dep vectors (checkpoint capture)."""
+        return dict(succ=column_numpy(self.dep_succ, np.int32),
+                    fail=column_numpy(self.dep_fail, np.int32),
+                    last_fire=column_numpy(self.dep_last_fire, np.int32),
+                    block=column_numpy(self.dep_block, np.bool_))
+
+    def set_dep_state(self, succ, fail, last_fire, block):
+        """Install checkpointed dep vectors whole (restore path)."""
+        dev = self.device
+        self.dep_succ = column_tensor(succ, np.int32, dev)
+        self.dep_fail = column_tensor(fail, np.int32, dev)
+        self.dep_last_fire = column_tensor(last_fire, np.int32, dev)
+        self.dep_block = column_tensor(block, np.bool_, dev)
+
+    # -- tenant admission state ----------------------------------------------
 
     @property
     def tenants_enabled(self) -> bool:
-        return False
+        return self._tenants_enabled
 
     def set_tenants_enabled(self, flag: bool = True):
-        if flag:
-            raise NotImplementedError(
-                "tenant admission is not ported to the torch planner yet "
-                "(ROADMAP queue 1, item 10: ops/tenancy.py and the "
-                "use_tenants arm)")
+        """Arm (or disarm) tenant admission in the plan step."""
+        self._tenants_enabled = bool(flag)
+
+    def set_row_tenants(self, rows, tids):
+        """Update the host row->tenant snapshot the admission order derives
+        from (recomputed at the next armed dispatch)."""
+        if len(rows):
+            self._tenant_np[np.asarray(rows, np.int64)] = np.asarray(
+                tids, np.int32)
+            self._tn_order = None
+
+    def set_tenant_quota(self, tid: int, rate: float, burst: float,
+                         weight: float = 1.0):
+        """Install or refresh one tenant's bucket.  Tokens reset to a full
+        bucket (a fresh or raised quota must not inherit a starved one)."""
+        t = int(tid)
+        limited = rate > 0
+        self.tb_rate[t] = float(np.float32(rate))
+        self.tb_burst[t] = float(np.float32(burst))
+        self.tb_limited[t] = bool(limited)
+        self.tb_weight[t] = float(np.float32(max(weight, 1e-6)))
+        self.tb_tokens[t] = float(np.float32(burst if limited else 0.0))
+
+    def clear_tenant_quota(self, tid: int):
+        """Quota record deleted: the tenant reverts to unlimited."""
+        self.set_tenant_quota(tid, 0.0, 0.0, 1.0)
+
+    def _tenant_order(self) -> TenantOrder:
+        if self._tn_order is None:
+            self._tn_order = TenantOrder.from_tenants(
+                self._tenant_np, self.T, self.device)
+        return self._tn_order
+
+    def tenant_state(self) -> dict:
+        """Host copy of the tokens (checkpoint capture); rate, burst and
+        limited re-derive from the quota records."""
+        return dict(tokens=column_numpy(self.tb_tokens, np.float32))
+
+    def set_tenant_state(self, tokens):
+        """Install checkpointed tokens whole (restore path)."""
+        self.tb_tokens = column_tensor(tokens, np.float32, self.device)
 
     def job_finished(self, node_col: int, cost: float):
         """Exclusive execution completed: release the capacity slot the
@@ -328,13 +510,23 @@ class TickPlanner:
     # -- windowed planning ---------------------------------------------------
 
     def _dispatch(self, epoch_s: int, window_s: int, kx: int, kc: int):
-        """Enqueue one window and its copy to the host; returns
-        (handle, load, rem_cap) without touching the planner's state."""
-        fields_w = torch.from_numpy(
-            window_field_matrix(epoch_s, window_s, self.tz)).to(self.device)
-        out, load, rem_cap = _plan_window_step(
+        """Enqueue one window and its copy to the host; returns (handle,
+        load, rem_cap, last_fire, tokens) — the carried state after the
+        window, None for a disarmed arm — without touching the planner's
+        state."""
+        fields = window_field_matrix(epoch_s, window_s, self.tz)
+        fields_w = torch.from_numpy(fields).to(self.device)
+        deps = tenants = None
+        if self._dep_enabled:
+            deps = _DepArm(self.dep_succ, self.dep_fail, self.dep_block,
+                           self.dep_last_fire, fields[:, 6].tolist())
+        if self._tenants_enabled:
+            tenants = _TenantArm(self._tenant_order(), self.tb_rate,
+                                 self.tb_burst, self.tb_limited,
+                                 self.tb_weight, self.tb_tokens)
+        out, load, rem_cap, last_fire, tokens = _plan_window_step(
             self.table, fields_w, self.elig, self.exclusive, self.cost,
-            self.load, self.rem_cap, kx, kc, self.rounds)
+            self.load, self.rem_cap, kx, kc, self.rounds, deps, tenants)
         adt = np.int16 if self.N <= 32767 else np.int32
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -343,7 +535,9 @@ class TickPlanner:
             ready.record()
         else:
             host, ready = out, None
-        return _WindowHandle(epoch_s, kx, kc, adt, host, ready), load, rem_cap
+        nt = self.T if tenants is not None else 0
+        return (_WindowHandle(epoch_s, kx, kc, adt, nt, host, ready),
+                load, rem_cap, last_fire, tokens)
 
     def plan_window_async(self, epoch_s: int, window_s: int,
                           sla_bucket: Optional[int] = None):
@@ -352,7 +546,11 @@ class TickPlanner:
         ``sla_bucket`` pins both buckets: an int pins each to it, a
         (kx, kc) tuple pins them separately.  Handles may be pipelined:
         carried load/capacity chain in dispatch order.  Dispatch must stay
-        on ONE thread; gather may run on another."""
+        on ONE thread; gather may run on another.
+
+        An overflow-escalation replan (``sla_bucket`` set) re-plans seconds
+        whose refill and spend already advanced the buckets, so it never
+        writes ``tb_tokens`` back; it does write ``dep_last_fire``."""
         if isinstance(sla_bucket, tuple):
             sla_x, sla_c = sla_bucket
         else:
@@ -361,8 +559,12 @@ class TickPlanner:
             kx = self._bx.size(sla_x)
             kc = self._bc.size(sla_c)
         with record_function("cronsun.plan.dispatch"):
-            handle, self.load, self.rem_cap = self._dispatch(
-                epoch_s, window_s, kx, kc)
+            handle, self.load, self.rem_cap, last_fire, tokens = \
+                self._dispatch(epoch_s, window_s, kx, kc)
+            if last_fire is not None:
+                self.dep_last_fire = last_fire
+            if tokens is not None and sla_bucket is None:
+                self.tb_tokens = tokens
         return handle
 
     def gather_window(self, handle: _WindowHandle):
@@ -376,7 +578,10 @@ class TickPlanner:
                 handle.ready.synchronize()
             o = handle.out.numpy()
         W = o.shape[0]
-        oa = np.ascontiguousarray(o[:, 2 + kx + kc:]).view(handle.adt)[:, :kx]
+        a0 = 2 + kx + kc
+        a1 = a0 + ((kx + 1) // 2 if handle.adt == np.int16 else kx)
+        oa = np.ascontiguousarray(o[:, a0:a1]).view(handle.adt)[:, :kx]
+        ot = o[:, a1:].reshape(W, 2, handle.nt) if handle.nt else None
         plans = []
         for w in range(W):
             xt, ct = int(o[w, 0]), int(o[w, 1])
@@ -387,7 +592,9 @@ class TickPlanner:
             plans.append(TickPlan(
                 epoch_s=handle.epoch_s + w, fired=fired, assigned=assigned,
                 overflow=max(0, xt - kx) + max(0, ct - kc),
-                total_fired=xt + ct, n_excl=nx))
+                total_fired=xt + ct, n_excl=nx,
+                tenant_throttled=None if ot is None else ot[w, 0],
+                tenant_shed=None if ot is None else ot[w, 1]))
         if W:
             with self._bucket_mu:
                 self._bx.feed(int(o[:, 0].max()), W)
@@ -401,11 +608,12 @@ class TickPlanner:
 
     def warm_window(self, epoch_s: int, window_s: int) -> None:
         """Run one window at the buckets a fresh leader's first plan would
-        use WITHOUT mutating carried state or bucket hysteresis: builds the
-        kernels and fills the allocator's caches before a takeover."""
+        use WITHOUT mutating carried state (load, capacity, last_fire,
+        tokens) or bucket hysteresis: builds the kernels and fills the
+        allocator's caches before a takeover."""
         with self._bucket_mu:
             kx, kc = self._bx.peek(), self._bc.peek()
-        handle, _, _ = self._dispatch(epoch_s, window_s, kx, kc)
+        handle = self._dispatch(epoch_s, window_s, kx, kc)[0]
         if handle.ready is not None:
             handle.ready.synchronize()
 
@@ -416,7 +624,7 @@ class TickPlanner:
         with self._bucket_mu:
             k = min(_next_pow2(max(self._bx.peek(),
                                    self._bc.peek()) * factor), self.J)
-        handle, _, _ = self._dispatch(epoch_s, 1, k, k)
+        handle = self._dispatch(epoch_s, 1, k, k)[0]
         if handle.ready is not None:
             handle.ready.synchronize()
         self._warmed_single.add(k)

@@ -1,13 +1,17 @@
 """The hand-written CUDA kernels against their plain versions, and the planner
-on the card against the planner on the CPU.  Needs an NVIDIA GPU (the
+(disarmed and with both arms armed) and batched next-fire on the card against
+the same on the CPU.  Needs an NVIDIA GPU (the
 kernels have no CPU mode); without one every test here skips.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+import datetime as dt
 import subprocess
 import sys
 from pathlib import Path
+from zoneinfo import ZoneInfo
 
 import numpy as np
 import pytest
@@ -15,9 +19,14 @@ import torch
 
 from cronsun_tpu_torch.convert import planner_from_numpy
 from cronsun_tpu_torch.ops import kernels as k
-from cronsun_tpu_torch.synth import synth_state
+from cronsun_tpu_torch.ops import next_fire, tick
+from cronsun_tpu_torch.ops.schedule_table import build_table
+from cronsun_tpu_torch.synth import (arm_mixed, bench_mixed_specs,
+                                     completions, synth_state)
 
 pytestmark = pytest.mark.cuda
+
+T0 = 1_753_000_000
 
 
 @pytest.fixture
@@ -181,8 +190,8 @@ def test_planner_on_the_card_matches_the_cpu(cuda):
     gpu = planner_from_numpy(state, device=cuda, max_fire_bucket=2048)
     cpu = planner_from_numpy(state, device="cpu", max_fire_bucket=2048)
     for i in range(3):
-        a = gpu.plan_window(1_753_000_000 + 4 * i, 4)
-        b = cpu.plan_window(1_753_000_000 + 4 * i, 4)
+        a = gpu.plan_window(T0 + 4 * i, 4)
+        b = cpu.plan_window(T0 + 4 * i, 4)
         for x, y in zip(a, b):
             assert np.array_equal(x.fired, y.fired)
             assert np.array_equal(x.assigned, y.assigned)
@@ -190,3 +199,59 @@ def test_planner_on_the_card_matches_the_cpu(cuda):
                 (y.overflow, y.total_fired, y.n_excl)
     assert torch.equal(gpu.load.cpu(), cpu.load)
     assert torch.equal(gpu.rem_cap.cpu(), cpu.rem_cap)
+
+
+def test_armed_planner_on_the_card_matches_the_cpu(cuda):
+    """Both arms armed (a 3-stage DAG with every policy, Zipf tenants, a
+    noisy one, one slot per node so the fair share clamps), completions
+    folded between windows: every TickPlan field and the carried state
+    equal."""
+    J, N = 8192, 320
+    state = synth_state(J, N, seed=4, node_cap=1, empty_rows=0.05)
+    stages = arm_mixed(state, seed=5, n_dep=600, n_noisy=200,
+                       start_epoch_s=T0)
+    ups = np.zeros(J, bool)
+    ups[stages["sources"]] = ups[stages["mids"]] = True
+    gpu = planner_from_numpy(state, device=cuda, max_fire_bucket=2048)
+    cpu = planner_from_numpy(state, device="cpu", max_fire_bucket=2048)
+    rng = np.random.default_rng(6)
+    refused = 0
+    for i in range(4):
+        for p in (gpu, cpu):
+            p.set_node_capacity(list(range(N)), [1] * N)
+        a = gpu.plan_window(T0 + 4 * i, 4)
+        b = cpu.plan_window(T0 + 4 * i, 4)
+        for x, y in zip(a, b):
+            for f in dataclasses.fields(x):
+                assert np.array_equal(getattr(x, f.name),
+                                      getattr(y, f.name)), f.name
+            refused += int(x.tenant_throttled.sum())
+        rows, succ, fail = completions(a, ups, rng)
+        for p in (gpu, cpu):
+            p.set_dep_epochs(rows, succ, fail)
+    assert refused
+    for name in ("load", "rem_cap", "dep_last_fire", "tb_tokens"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+NY = ZoneInfo("America/New_York")
+
+
+@pytest.mark.parametrize("tz", [dt.timezone.utc, NY], ids=["utc", "new_york"])
+def test_next_fire_on_the_card_matches_the_cpu(cuda, tz, monkeypatch):
+    """The bench's mixed specs plus sparse and never-firing ones, around a
+    DST change, in several row passes and past the day window's horizon."""
+    specs = bench_mixed_specs(1500) + ["0 30 2 * * *", "0 30 1 ? * Sun",
+                                       "0 0 0 29 2 ?", "0 0 0 30 2 ?",
+                                       "0 0 12 13 * Fri"]
+    cpu = build_table(specs, phase_epoch_s=T0, device="cpu")
+    gpu = build_table(specs, phase_epoch_s=T0, device=cuda)
+    monkeypatch.setattr(tick, "NEXT_FIRE_CHUNK", 512)
+    for after in (T0, int(dt.datetime(2025, 10, 30, 12, tzinfo=NY).timestamp()),
+                  int(dt.datetime(2026, 3, 6, 3, tzinfo=NY).timestamp())):
+        got = next_fire(gpu, after, tz=tz)
+        assert np.array_equal(got, next_fire(cpu, after, tz=tz))
+        assert (got[:1500] >= 0).all()
+    long = dict(tz=tz, horizon_s=10 * 366 * 86400)
+    assert np.array_equal(next_fire(gpu, T0, **long),
+                          next_fire(cpu, T0, **long))

@@ -145,14 +145,19 @@ def test_warm_paths_mutate_no_carried_state(state):
 
 
 def test_unported_arms_refuse_loudly():
+    """Both arms are ported: their switches arm and disarm (they used to
+    raise), and an armed arm runs."""
     p = TickPlanner(64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        p.set_dep_enabled(True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p.set_tenants_enabled(True)
+    assert not p.dep_enabled and not p.tenants_enabled
+    p.set_dep_enabled(True)
+    p.set_tenants_enabled(True)
+    assert p.dep_enabled and p.tenants_enabled
+    plan = p.plan(T0)
+    assert plan.tenant_throttled.shape == (p.T,) and plan.fired.size == 0
     p.set_dep_enabled(False)
     p.set_tenants_enabled(False)
     assert not p.dep_enabled and not p.tenants_enabled
+    assert p.plan(T0 + 1).tenant_throttled is None
 
 
 def test_adaptive_bucket_hysteresis():
