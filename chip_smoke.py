@@ -60,6 +60,22 @@ Phases, each printing one JSON line:
    one in America/New_York 3 days before a DST change, card == CPU; then
    2^20 rows of the same mix, timed, held against the CPU on a 65536-row
    slice.
+12. service — the port's ``SchedulerService`` over its in-process
+   ``MemStore``, seeded with ``scripts/bench_sched.py``'s deployment
+   (100 000 jobs x 1024 nodes, ``synth.seed_service_store``) at a pinned
+   clock.  One service on the card and one on the CPU cold-load and step
+   ``SERVICE_CHECK_WINDOWS`` + 1 windows of 4 s (serial mode); their
+   published orders and high-water marks must be byte-identical.  The
+   script plays the agents on the card service's orders: each (job,
+   second) runs once behind a fence, re-deliveries only of seconds
+   re-planned for overflow, exclusive fires one node each on a live
+   eligible node, and every (job, second) a scalar evaluation of the
+   job's spec says is due in the first ``SERVICE_CHECK_WINDOWS`` windows
+   runs.  Then ``SERVICE_TIMED_STEPS`` steps in the pipelined mode are
+   timed, with both kernels' launch counts set to 0 before and read after
+   (``launches_service``), and a checkpoint of the card service restores
+   into a fresh card service on the same store whose first window's
+   orders equal the cold-loaded service's.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -107,6 +123,15 @@ NOISY_BURST = 2.0
 # read back (aten::item) and a stream drained
 SYNC_EVENTS = ("aten::item", "aten::_local_scalar_dense",
                "cudaStreamSynchronize", "cudaEventSynchronize")
+# the service phase: scripts/bench_sched.py's default deployment (its
+# --jobs / --nodes / --window); the pinned clock is 20 s before a minute
+# boundary, so the checked windows hold the */k herd second
+SERVICE_JOBS = 100_000
+SERVICE_NODES = 1024
+SERVICE_WINDOW = 4
+SERVICE_CHECK_WINDOWS = 8
+SERVICE_TIMED_STEPS = 30
+SERVICE_NOW = T0
 
 
 def emit(obj) -> None:
@@ -1004,6 +1029,320 @@ def phase_next_fire(dev, n_specs=10_000, calls=10, big_rows=1 << 20,
           "wall_s": time.perf_counter() - t})
 
 
+class ServiceFleet:
+    """The agents of a service phase, played on the store's orders: every
+    dispatch key put or rewritten since the last read is delivered; an
+    exclusive bundle runs each member on its node, a Common broadcast runs
+    on the job's eligible nodes; each (job, second) runs once, behind a
+    fence, as the agents' lock txn makes it.  ``read`` checks each
+    delivery against the seeded job documents, read back from the store."""
+
+    def __init__(self, store, ks):
+        self.store, self.ks = store, ks
+        self.nodes = {kv.key[len(ks.node):] for kv in store.get_prefix(ks.node)}
+        self.groups = {kv.key[len(ks.group):]: set(json.loads(kv.value)["nids"])
+                       for kv in store.get_prefix(ks.group)}
+        self.jobs = {}
+        for kv in store.get_prefix(ks.cmd):
+            doc = json.loads(kv.value)
+            rule, = doc["rules"]
+            self.jobs[kv.key[len(ks.cmd):]] = (
+                doc["kind"], rule["timer"], set(rule.get("nids") or ()),
+                rule.get("gids") or [], set(rule.get("exclude_nids") or ()))
+        self.anchors = {}
+        for kv in store.get_prefix(ks.phase):
+            grp, job, _rule = kv.key[len(ks.phase):].split("/")
+            self.anchors[f"{grp}/{job}"] = int(kv.value.rsplit("|", 1)[1])
+        self.seen = {}
+        self.runs = {}          # (job, second) -> node (None: broadcast)
+        self.replanned = set()  # seconds the service re-planned for overflow
+        self.n = dict.fromkeys(("deliveries", "bundles", "broadcasts",
+                                "fenced_redeliveries"), 0)
+
+    def eligible(self, job, node) -> bool:
+        _k, _t, nids, gids, excl = self.jobs[job]
+        if node not in self.nodes or node in excl:
+            return False
+        return node in nids or any(node in self.groups[g] for g in gids)
+
+    def read(self, replanned):
+        """Deliver what the last step published; ``replanned``: the seconds
+        that step queued for an overflow re-plan."""
+        cur = {kv.key: kv.value for kv in self.store.get_prefix(self.ks.dispatch)}
+        step = set()
+        for key, value in cur.items():
+            if self.seen.get(key) == value:
+                continue
+            parts = key[len(self.ks.dispatch):].split("/")
+            if parts[0] == self.ks.BROADCAST:
+                ep, job, node = int(parts[1]), "/".join(parts[2:]), None
+                if self.jobs[job][0] != 0:
+                    raise AssertionError(f"{key}: broadcast of an exclusive job")
+                fires = [job]
+                self.n["broadcasts"] += 1
+            elif len(parts) == 2:
+                node, ep = parts[0], int(parts[1])
+                fires = json.loads(value)
+                self.n["bundles"] += 1
+                for job in fires:
+                    if self.jobs[job][0] == 0:
+                        raise AssertionError(f"{key}: Common job {job} bundled")
+                    if not self.eligible(job, node):
+                        raise AssertionError(f"{key}: {job} on a node that is "
+                                             f"not live and eligible")
+            else:
+                raise AssertionError(f"unexpected order key {key}")
+            for job in fires:
+                if (job, ep) in step:
+                    raise AssertionError(f"({job}, {ep}) published twice in "
+                                         f"one step")
+                step.add((job, ep))
+                self.n["deliveries"] += 1
+                if (job, ep) in self.runs:
+                    if ep not in self.replanned:
+                        raise AssertionError(f"({job}, {ep}) delivered again, "
+                                             f"but {ep} was not re-planned")
+                    self.n["fenced_redeliveries"] += 1
+                else:
+                    self.runs[(job, ep)] = node
+        self.seen = cur
+        self.replanned |= set(replanned)
+
+    def due(self, lo: int, hi: int) -> set:
+        """(job, second) for every second in [lo, hi) at which the job's spec,
+        evaluated on its own by the scalar cron schedule (``@every`` from its
+        phase anchor), says it fires."""
+        import datetime as dt
+        from cronsun_tpu_torch.cron.parser import EverySpec, parse
+        from cronsun_tpu_torch.cron.schedule import Schedule
+        by_timer = {}
+        for job, (_k, timer, *_rest) in self.jobs.items():
+            by_timer.setdefault(timer, []).append(job)
+        out = set()
+        for timer, jobs in by_timer.items():
+            spec = parse(timer)
+            if isinstance(spec, EverySpec):
+                for job in jobs:
+                    a = self.anchors[job]
+                    out.update((job, t) for t in range(
+                        lo + (a - lo) % spec.period_s, hi, spec.period_s))
+                continue
+            sched = Schedule(spec)
+            t = dt.datetime.fromtimestamp(lo - 1, dt.timezone.utc)
+            while True:
+                t = sched.next(t)
+                if t is None or t.timestamp() >= hi:
+                    break
+                out.update((job, int(t.timestamp())) for job in jobs)
+        return out
+
+
+def _service_orders(store, ks):
+    return sorted((kv.key, kv.value) for kv in store.get_prefix(ks.dispatch))
+
+
+def _span_pcts(svc) -> dict:
+    return {name: {"p50": ring.percentile(0.5), "p99": ring.percentile(0.99)}
+            for name, ring in sorted(svc._span_hist.items())}
+
+
+class Gen2Collections:
+    """Records (step, ms) of each full (generation 2) garbage collection
+    while installed; ``step`` is set by the caller."""
+
+    def __init__(self):
+        self.step, self.events, self._t0 = 0, [], 0.0
+
+    def __call__(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.events.append((self.step,
+                                (time.perf_counter() - self._t0) * 1e3))
+
+
+def phase_service(dev, check_windows=SERVICE_CHECK_WINDOWS,
+                  timed_steps=SERVICE_TIMED_STEPS, n_jobs=SERVICE_JOBS,
+                  n_nodes=SERVICE_NODES, W=SERVICE_WINDOW):
+    """The service on the card against the service on the CPU, the played
+    fleet, the timed steps and the warm takeover (see the module
+    docstring, phase 12).  Returns both kernels' launch counts over the
+    timed steps."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.ops import kernels as k
+    from cronsun_tpu_torch.sched import SchedulerService
+    from cronsun_tpu_torch.store import MemStore
+    from cronsun_tpu_torch.synth import seed_service_store
+    ks = Keyspace()
+    ckpt_dir = tempfile.mkdtemp(prefix="cronsun-ckpt-")
+    svcs = []
+
+    def service(store, device, **kw):
+        t = time.perf_counter()
+        svc = SchedulerService(
+            store, ks, job_capacity=n_jobs, node_capacity=n_nodes,
+            window_s=W, dispatch_ttl=3600.0, pipelined=False,
+            clock=lambda: float(SERVICE_NOW), device=device, **kw)
+        svcs.append(svc)
+        return svc, time.perf_counter() - t
+
+    def seeded():
+        store = MemStore()
+        seed_service_store(store, ks, n_jobs, n_nodes, SERVICE_NOW)
+        return store
+
+    out = {"phase": "service", "jobs": n_jobs, "nodes": n_nodes, "window_s": W,
+           "pinned_clock": SERVICE_NOW}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        store = seeded()
+        out["seed_s"] = time.perf_counter() - t
+        card, out["cold_load_s"] = service(store, dev,
+                                           checkpoint_dir=ckpt_dir)
+        cpu_store = seeded()
+        cpu, out["cpu_cold_load_s"] = service(cpu_store, "cpu")
+        fleet = ServiceFleet(store, ks)
+        # exactness and the fleet: check_windows windows, plus one so the
+        # last window's overflow re-plans land
+        step_s, t_now = [], SERVICE_NOW
+        for i in range(check_windows + 1):
+            t = time.perf_counter()
+            card.step(now=t_now)
+            step_s.append(time.perf_counter() - t)
+            fleet.read([ep for ep, _h, _f in card._pending_replans])
+            cpu.step(now=t_now)
+            if card._next_epoch != cpu._next_epoch:
+                raise AssertionError("the services' plan cursors differ")
+            t_now = card._next_epoch
+        orders = _service_orders(store, ks)
+        if orders != _service_orders(cpu_store, ks) or \
+                store.get(ks.hwm).value != cpu_store.get(ks.hwm).value:
+            raise AssertionError("card service orders != CPU service orders")
+        lo = SERVICE_NOW + 1
+        hi = lo + check_windows * W
+        due = fleet.due(lo, hi)
+        ran = {r for r in fleet.runs if lo <= r[1] < hi}
+        extra = ran - due
+        if extra:
+            raise AssertionError(f"{len(extra)} runs not due, e.g. "
+                                 f"{sorted(extra)[:3]}")
+        # a due fire that never ran: an exclusive one no node could take
+        # (a no-capacity skip; the seed's nodes are uncapped) or a lost one
+        missing = due - ran
+        skipped = sum(fleet.jobs[job][0] != 0 for job, _ep in missing)
+        if missing:
+            raise AssertionError(f"{len(missing)} due fires never ran "
+                                 f"({skipped} exclusive), e.g. "
+                                 f"{sorted(missing)[:3]}")
+        out.update(identical_windows=check_windows + 1,
+                   identical_orders=len(orders), hwm=int(store.get(ks.hwm).value),
+                   checked_seconds=[lo, hi], due_fires=len(due),
+                   runs=len(ran), no_capacity_skips=skipped,
+                   replanned_seconds=sorted(fleet.replanned),
+                   overflow_late_fires=card.stats["overflow_late_fires"],
+                   overflow_drops=card.stats["overflow_drops"],
+                   serial_step_s=step_s, serial_spans_ms=_span_pcts(card),
+                   **fleet.n)
+        cpu.stop()
+        if card.stats["overflow_drops"]:
+            raise AssertionError(f"overflow drops {card.stats}")
+        # the services' background warm-ups (one window and the escalated
+        # single-second bucket each) finish before the timed steps
+        t = time.perf_counter()
+        for th in (cpu._warm_thread, card._warm_thread):
+            if th is not None:
+                th.join()
+        out["warm_join_s"] = time.perf_counter() - t
+
+        # timed steps, pipelined: the first pays the mode switch
+        card.pipelined = True
+        t = time.perf_counter()
+        card.step(now=t_now)
+        out["first_step_s"] = time.perf_counter() - t
+        t_now = card._next_epoch
+        card.reset_latency_stats()
+        d0 = card.stats["dispatches_total"]
+        gen2 = Gen2Collections()
+        gc.callbacks.append(gen2)
+        # the window the untimed step handed to the dispatch thread lands
+        # before the counts start: they cover the timed steps' windows
+        card._resolve_handle(card._pending_plan[1])
+        k.reset_launch_counts()                 # the service's run starts
+        ms = []
+        try:
+            for gen2.step in range(timed_steps):
+                t = time.perf_counter()
+                card.step(now=t_now)
+                ms.append((time.perf_counter() - t) * 1e3)
+                t_now = card._next_epoch
+        finally:
+            gc.callbacks.remove(gen2)
+        card._builder.flush()
+        card.publisher.flush()
+        card._drain_build_acct()
+        # the window the last step handed to the dispatch thread
+        card._resolve_handle(card._pending_plan[1])
+        counts = k.launch_counts()              # ... and ends
+        if not all(counts.values()):
+            raise AssertionError(f"a kernel never launched in the service's "
+                                 f"steps: {counts}")
+        out.update(
+            timed_steps=timed_steps, step_ms=ms,
+            step_p50_ms=float(np.percentile(ms, 50)),
+            step_p99_ms=float(np.percentile(ms, 99)),
+            spans_ms=_span_pcts(card),
+            dispatches_per_step=(card.stats["dispatches_total"] - d0)
+            / timed_steps, launches_service=counts,
+            gc_gen2_step_ms=gen2.events,
+            overflow_late_fires_total=card.stats["overflow_late_fires"])
+
+        # warm takeover: a fresh card service restores the card service's
+        # checkpoint; both plan the next window from the same capacities
+        save = card.checkpoint_save(kind="full")
+        out["checkpoint_save_ms"] = save["ms"]
+        warm, out["takeover_s"] = service(store, dev, checkpoint_dir=ckpt_dir)
+        if not warm.checkpoint_restored:
+            raise AssertionError("the checkpoint did not restore")
+
+        def first_window(svc):
+            svc.reconcile_capacity()
+            svc._flush_device()
+            secs = []
+            for p in svc.planner.plan_window(t_now, W, sla_bucket=1 << 16):
+                svc._build_plan_orders(p, secs, [])
+            return [(ep, kv) for ep, os_ in secs for kv in os_]
+        cold_first = first_window(card)
+        if first_window(warm) != cold_first or not cold_first:
+            raise AssertionError("warm takeover's first window != cold load's")
+        # the plan alone: windows dispatched and gathered on this thread
+        # with no other thread of the service running
+        alone = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            card.planner.plan_window(t_now + (i + 1) * W, W)
+            alone.append((time.perf_counter() - t) * 1e3)
+        out.update(takeover_first_window_orders=len(cold_first),
+                   plan_alone_ms_per_window=alone,
+                   buckets=[card.planner._bx.cur_k, card.planner._bc.cur_k],
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   nvidia_smi=nvidia_smi_line())
+    finally:
+        for svc in svcs:
+            svc.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit(out)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
@@ -1024,9 +1363,11 @@ def main(argv=None) -> int:
     phase_plan_equivalence_armed(dev)
     armed = phase_headline_armed(dev, args.windows, args.profile)
     phase_next_fire(dev)
+    service = phase_service(dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
+        r["launches_service"] = service[r["name"]]
         r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
                      for t in path if t["name"] == r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [

@@ -19,6 +19,20 @@ waits for the stream (three per bid round).  The outputs of the whole window
 are packed into one int32 block and copied to pinned host memory behind an
 event, which :meth:`TickPlanner.gather_window` waits on.
 
+The setters, however, write the live tensors in place (``update_rows``
+scatters into the table, ``set_eligibility_rows`` into ``elig``), and a
+window is issued op by op: the fire mask reads the table once, the dep arm
+reads ``dep_cols`` every second, K1 and K2 read ``elig`` every round.  A
+write issued while a window is being issued would land between two of its
+seconds, and the window would plan half on the old state and half on the
+new.  So the planner owns one lock, :attr:`TickPlanner.lock`: a dispatch
+holds it while it issues the window and installs the carried state, and
+every state setter holds it too.  On the card all of them issue on the
+planner's stream, so stream order is issue order whatever the calling
+thread's current stream is.  A write issued before a dispatch is seen by
+it, and one issued after is not — the JAX planner's snapshot semantics,
+without a copy of ``elig``.
+
 Two arms fold into each second when armed (``set_dep_enabled``,
 ``set_tenants_enabled``): the workflow-DAG trigger (:mod:`.deps`) ORs dep
 fires into the time fires and carries ``dep_last_fire``; tenant admission
@@ -29,6 +43,7 @@ taken: the step reads none of its tensors and issues none of its ops.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from datetime import timezone
@@ -43,7 +58,7 @@ from ..device import DeviceLike, resolve_device
 from .assign import _assign_excl, _fanout_load, choose_impl
 from .deps import NEVER, dep_ready
 from .schedule_table import (ScheduleTable, build_table, column_numpy,
-                             column_tensor, update_rows)
+                             column_tensor, table_to_numpy, update_rows)
 from .tenancy import TenantOrder, admit
 from .tick import _fire_mask, window_field_matrix
 
@@ -280,6 +295,14 @@ class TickPlanner:
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     PyTorch path.  Eligibility rows are int32 bit patterns of the uint32
     words the JAX planner holds.
+
+    Thread safety: :attr:`lock` (reentrant) serializes window dispatch
+    against every state write, so a dispatched window sees either all or
+    none of a write (see the module docstring).  On the card the planner
+    issues on the stream that was current on its device when it was built
+    (the default stream unless the caller chose another): tensors callers
+    build or read on that stream stay ordered with the planner's work
+    without a ``record_stream``.
     """
 
     def __init__(self, job_capacity: int, node_capacity: int,
@@ -288,6 +311,9 @@ class TickPlanner:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.impl = choose_impl(self.device)
+        self.lock = threading.RLock()
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.tz = tz
         self.rounds = rounds
         self.max_fire_bucket = max_fire_bucket
@@ -333,6 +359,20 @@ class TickPlanner:
 
     # -- state maintenance (fixed-shape, in-place scatters) -----------------
 
+    @contextlib.contextmanager
+    def issuing(self):
+        """Hold :attr:`lock` and issue on the planner's stream (after
+        whatever the calling thread's stream has already enqueued)."""
+        with self.lock:
+            if self._stream is None:
+                yield
+                return
+            cur = torch.cuda.current_stream(self.device)
+            if cur != self._stream:
+                self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                yield
+
     def _rows(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
 
@@ -341,15 +381,18 @@ class TickPlanner:
             raise ValueError(f"table capacity {table.capacity} != {self.J}")
         if table.device != self.device:
             raise ValueError(f"table on {table.device}, planner on {self.device}")
-        self.table = table
+        with self.issuing():
+            self.table = table
 
     def update_table_rows(self, rows: np.ndarray, vals) -> None:
         """Scatter schedule-row updates into the table (in place)."""
-        self.set_table(update_rows(self.table, rows, vals))
+        with self.issuing():
+            self.set_table(update_rows(self.table, rows, vals))
 
     def set_load(self, loads: np.ndarray) -> None:
-        self.load = torch.as_tensor(np.asarray(loads, np.float32),
-                                    device=self.device).clone()
+        with self.issuing():
+            self.load = torch.as_tensor(np.asarray(loads, np.float32),
+                                        device=self.device).clone()
 
     def set_eligibility_rows(self, rows: np.ndarray, values: np.ndarray):
         """``values`` [R, W32] uint32 words (or their int32 bit patterns)."""
@@ -357,22 +400,53 @@ class TickPlanner:
             v = np.ascontiguousarray(values)
             if v.dtype == np.uint32:
                 v = v.view(np.int32)
-            self.elig[self._rows(rows)] = torch.as_tensor(
-                v.astype(np.int32, copy=False), device=self.device)
+            with self.issuing():
+                self.elig[self._rows(rows)] = torch.as_tensor(
+                    v.astype(np.int32, copy=False), device=self.device)
 
     def set_job_meta(self, rows: np.ndarray, exclusive: np.ndarray,
                      cost: np.ndarray):
         if len(rows):
-            r = self._rows(rows)
-            self.exclusive[r] = torch.as_tensor(np.asarray(exclusive, bool),
-                                                device=self.device)
-            self.cost[r] = torch.as_tensor(np.asarray(cost, np.float32),
-                                           device=self.device)
+            with self.issuing():
+                r = self._rows(rows)
+                self.exclusive[r] = torch.as_tensor(
+                    np.asarray(exclusive, bool), device=self.device)
+                self.cost[r] = torch.as_tensor(np.asarray(cost, np.float32),
+                                               device=self.device)
 
     def set_node_capacity(self, cols: Sequence[int], caps: Sequence[int]):
         if len(cols):
-            self.rem_cap[self._rows(cols)] = torch.as_tensor(
-                np.asarray(caps, np.int32), device=self.device)
+            with self.issuing():
+                self.rem_cap[self._rows(cols)] = torch.as_tensor(
+                    np.asarray(caps, np.int32), device=self.device)
+
+    def set_built_state(self, table: ScheduleTable, elig: torch.Tensor,
+                        exclusive: torch.Tensor, cost: torch.Tensor) -> None:
+        """Install a whole built state (the checkpoint restore path): the
+        table, ``elig`` (int32 bit patterns), ``exclusive`` and ``cost``,
+        each of the planner's shape and on its device."""
+        want = {"elig": (elig, (self.J, self.N // 32), torch.int32),
+                "exclusive": (exclusive, (self.J,), torch.bool),
+                "cost": (cost, (self.J,), torch.float32)}
+        for name, (t, shape, dt) in want.items():
+            if tuple(t.shape) != shape or t.dtype != dt \
+                    or t.device != self.device:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
+                                 f"{t.device}, want {shape} {dt} on "
+                                 f"{self.device}")
+        with self.issuing():
+            self.set_table(table)
+            self.elig, self.exclusive, self.cost = elig, exclusive, cost
+
+    def built_state(self) -> dict:
+        """Host copies of the built state in the JAX planner's dtypes (the
+        checkpoint capture): the table columns, ``elig`` as uint32 words,
+        ``exclusive`` bool and ``cost`` f32."""
+        with self.issuing():
+            return dict(table=table_to_numpy(self.table),
+                        elig=column_numpy(self.elig, np.uint32),
+                        exclusive=column_numpy(self.exclusive, np.bool_),
+                        cost=column_numpy(self.cost, np.float32))
 
     # -- workflow DAG state -------------------------------------------------
 
@@ -387,50 +461,56 @@ class TickPlanner:
 
     def set_dep_enabled(self, flag: bool = True):
         """Arm (or disarm) the dep trigger in the plan step."""
-        self._dep_enabled = bool(flag)
+        with self.lock:
+            self._dep_enabled = bool(flag)
 
     def set_dep_epochs(self, rows, succ, fail):
         """Fold completion-round epochs into the per-row vectors: a monotone
         max, so duplicate and repeated deliveries are idempotent."""
         if len(rows):
-            r = self._rows(rows)
-            self.dep_succ.scatter_reduce_(
-                0, r, self._vals(succ, len(rows), np.int32), "amax")
-            self.dep_fail.scatter_reduce_(
-                0, r, self._vals(fail, len(rows), np.int32), "amax")
+            with self.issuing():
+                r = self._rows(rows)
+                self.dep_succ.scatter_reduce_(
+                    0, r, self._vals(succ, len(rows), np.int32), "amax")
+                self.dep_fail.scatter_reduce_(
+                    0, r, self._vals(fail, len(rows), np.int32), "amax")
 
     def reset_dep_rows(self, rows, last_fire_rel=0):
         """Row (re)initialization: epochs back to NEVER and last_fire to the
         registration anchor, so a fresh dep row only reacts to rounds newer
         than its registration."""
         if len(rows):
-            r = self._rows(rows)
-            self.dep_succ[r] = NEVER
-            self.dep_fail[r] = NEVER
-            self.dep_last_fire[r] = self._vals(last_fire_rel, len(rows),
-                                               np.int32)
-            self.dep_block[r] = False
+            with self.issuing():
+                r = self._rows(rows)
+                self.dep_succ[r] = NEVER
+                self.dep_fail[r] = NEVER
+                self.dep_last_fire[r] = self._vals(last_fire_rel, len(rows),
+                                                   np.int32)
+                self.dep_block[r] = False
 
     def set_dep_block(self, rows, vals):
         """max_in_flight saturation gate (host-computed per step)."""
         if len(rows):
-            self.dep_block[self._rows(rows)] = self._vals(vals, len(rows),
-                                                          np.bool_)
+            with self.issuing():
+                self.dep_block[self._rows(rows)] = self._vals(
+                    vals, len(rows), np.bool_)
 
     def dep_state(self) -> dict:
         """Host copies of the mutable dep vectors (checkpoint capture)."""
-        return dict(succ=column_numpy(self.dep_succ, np.int32),
-                    fail=column_numpy(self.dep_fail, np.int32),
-                    last_fire=column_numpy(self.dep_last_fire, np.int32),
-                    block=column_numpy(self.dep_block, np.bool_))
+        with self.issuing():
+            return dict(succ=column_numpy(self.dep_succ, np.int32),
+                        fail=column_numpy(self.dep_fail, np.int32),
+                        last_fire=column_numpy(self.dep_last_fire, np.int32),
+                        block=column_numpy(self.dep_block, np.bool_))
 
     def set_dep_state(self, succ, fail, last_fire, block):
         """Install checkpointed dep vectors whole (restore path)."""
         dev = self.device
-        self.dep_succ = column_tensor(succ, np.int32, dev)
-        self.dep_fail = column_tensor(fail, np.int32, dev)
-        self.dep_last_fire = column_tensor(last_fire, np.int32, dev)
-        self.dep_block = column_tensor(block, np.bool_, dev)
+        with self.issuing():
+            self.dep_succ = column_tensor(succ, np.int32, dev)
+            self.dep_fail = column_tensor(fail, np.int32, dev)
+            self.dep_last_fire = column_tensor(last_fire, np.int32, dev)
+            self.dep_block = column_tensor(block, np.bool_, dev)
 
     # -- tenant admission state ----------------------------------------------
 
@@ -440,15 +520,17 @@ class TickPlanner:
 
     def set_tenants_enabled(self, flag: bool = True):
         """Arm (or disarm) tenant admission in the plan step."""
-        self._tenants_enabled = bool(flag)
+        with self.lock:
+            self._tenants_enabled = bool(flag)
 
     def set_row_tenants(self, rows, tids):
         """Update the host row->tenant snapshot the admission order derives
         from (recomputed at the next armed dispatch)."""
         if len(rows):
-            self._tenant_np[np.asarray(rows, np.int64)] = np.asarray(
-                tids, np.int32)
-            self._tn_order = None
+            with self.lock:
+                self._tenant_np[np.asarray(rows, np.int64)] = np.asarray(
+                    tids, np.int32)
+                self._tn_order = None
 
     def set_tenant_quota(self, tid: int, rate: float, burst: float,
                          weight: float = 1.0):
@@ -456,11 +538,12 @@ class TickPlanner:
         bucket (a fresh or raised quota must not inherit a starved one)."""
         t = int(tid)
         limited = rate > 0
-        self.tb_rate[t] = float(np.float32(rate))
-        self.tb_burst[t] = float(np.float32(burst))
-        self.tb_limited[t] = bool(limited)
-        self.tb_weight[t] = float(np.float32(max(weight, 1e-6)))
-        self.tb_tokens[t] = float(np.float32(burst if limited else 0.0))
+        with self.issuing():
+            self.tb_rate[t] = float(np.float32(rate))
+            self.tb_burst[t] = float(np.float32(burst))
+            self.tb_limited[t] = bool(limited)
+            self.tb_weight[t] = float(np.float32(max(weight, 1e-6)))
+            self.tb_tokens[t] = float(np.float32(burst if limited else 0.0))
 
     def clear_tenant_quota(self, tid: int):
         """Quota record deleted: the tenant reverts to unlimited."""
@@ -475,24 +558,29 @@ class TickPlanner:
     def tenant_state(self) -> dict:
         """Host copy of the tokens (checkpoint capture); rate, burst and
         limited re-derive from the quota records."""
-        return dict(tokens=column_numpy(self.tb_tokens, np.float32))
+        with self.issuing():
+            return dict(tokens=column_numpy(self.tb_tokens, np.float32))
 
     def set_tenant_state(self, tokens):
         """Install checkpointed tokens whole (restore path)."""
-        self.tb_tokens = column_tensor(tokens, np.float32, self.device)
+        with self.issuing():
+            self.tb_tokens = column_tensor(tokens, np.float32, self.device)
 
     def job_finished(self, node_col: int, cost: float):
         """Exclusive execution completed: release the capacity slot the
         solve reserved and retire its load."""
-        self.rem_cap[node_col] += 1
-        self.load[node_col] -= float(cost)
+        with self.issuing():
+            self.rem_cap[node_col] += 1
+            self.load[node_col] -= float(cost)
 
     def common_finished(self, node_col: int, cost: float):
         """Common (fan-out) execution completed: retire load only."""
-        self.load[node_col] -= float(cost)
+        with self.issuing():
+            self.load[node_col] -= float(cost)
 
     def decay_load(self, factor: float = 0.99):
-        self.load = self.load * factor
+        with self.issuing():
+            self.load = self.load * factor
 
     # -- the tick ------------------------------------------------------------
 
@@ -513,7 +601,7 @@ class TickPlanner:
         """Enqueue one window and its copy to the host; returns (handle,
         load, rem_cap, last_fire, tokens) — the carried state after the
         window, None for a disarmed arm — without touching the planner's
-        state."""
+        state.  The caller holds :meth:`issuing`."""
         fields = window_field_matrix(epoch_s, window_s, self.tz)
         fields_w = torch.from_numpy(fields).to(self.device)
         deps = tenants = None
@@ -545,8 +633,11 @@ class TickPlanner:
 
         ``sla_bucket`` pins both buckets: an int pins each to it, a
         (kx, kc) tuple pins them separately.  Handles may be pipelined:
-        carried load/capacity chain in dispatch order.  Dispatch must stay
-        on ONE thread; gather may run on another.
+        carried load/capacity chain in dispatch order, which is the order
+        dispatches take :attr:`lock` (the scheduler keeps its window
+        dispatches on one thread).  State writes from other threads land
+        wholly before or wholly after a window; gather may run on any
+        thread.
 
         An overflow-escalation replan (``sla_bucket`` set) re-plans seconds
         whose refill and spend already advanced the buckets, so it never
@@ -558,7 +649,7 @@ class TickPlanner:
         with self._bucket_mu:
             kx = self._bx.size(sla_x)
             kc = self._bc.size(sla_c)
-        with record_function("cronsun.plan.dispatch"):
+        with record_function("cronsun.plan.dispatch"), self.issuing():
             handle, self.load, self.rem_cap, last_fire, tokens = \
                 self._dispatch(epoch_s, window_s, kx, kc)
             if last_fire is not None:
@@ -613,7 +704,8 @@ class TickPlanner:
         allocator's caches before a takeover."""
         with self._bucket_mu:
             kx, kc = self._bx.peek(), self._bc.peek()
-        handle = self._dispatch(epoch_s, window_s, kx, kc)[0]
+        with self.issuing():
+            handle = self._dispatch(epoch_s, window_s, kx, kc)[0]
         if handle.ready is not None:
             handle.ready.synchronize()
 
@@ -624,7 +716,8 @@ class TickPlanner:
         with self._bucket_mu:
             k = min(_next_pow2(max(self._bx.peek(),
                                    self._bc.peek()) * factor), self.J)
-        handle = self._dispatch(epoch_s, 1, k, k)[0]
+        with self.issuing():
+            handle = self._dispatch(epoch_s, 1, k, k)[0]
         if handle.ready is not None:
             handle.ready.synchronize()
         self._warmed_single.add(k)

@@ -222,8 +222,10 @@ def update_rows(table: ScheduleTable, indices: np.ndarray,
 
     Unlike the JAX version, which returns a new table, this scatters IN
     PLACE into ``table``'s tensors (no 20-column copy per delta) and returns
-    the same table.  On the card the scatter is stream-ordered after any
-    plan already dispatched, so an in-flight window reads the old rows."""
+    the same table.  A window reads the table while it is being issued, so
+    a planner's table is written only through
+    ``TickPlanner.update_table_rows``, which holds the planner's lock: the
+    scatter lands wholly before or wholly after any window."""
     idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
                           device=table.device)
     cols = _rows_to_numpy(rows, len(rows))

@@ -10,6 +10,10 @@ million-row table costs no per-row Python.
 :func:`arm_dag` and :func:`arm_tenants` arm them in place (:func:`arm_mixed`
 both, as the armed equivalence checks do), and :func:`completions` makes the
 completion rounds folded between windows.
+
+:func:`seed_service_store` is of another kind: it writes a whole cluster
+(nodes, groups, jobs, ``@every`` phase anchors) into a coordination store,
+for a scheduler service to load.
 """
 
 from __future__ import annotations
@@ -295,3 +299,73 @@ def completions(plans, upstream: np.ndarray, rng: np.random.Generator,
     ok = rng.random(len(rows)) >= fail_share
     return (rows, np.where(ok, ep, NEVER).astype(np.int32),
             np.where(ok, NEVER, ep).astype(np.int32))
+
+
+def seed_service_store(store, ks, n_jobs: int, n_nodes: int,
+                       now: int) -> None:
+    """Write the placement-realistic cluster of ``scripts/bench_sched.py``'s
+    ``seed`` (lines 30-111) into ``store``, with the clock ``now`` passed
+    in: ``n_nodes`` live nodes, 32 groups of 10-1000 members (log-uniform),
+    and ``n_jobs`` jobs in group ``bench`` — 3 in 5 ``@every`` 30-899 s with
+    their phase anchors back-dated over their period, 1 in 5 ``*/k`` second
+    specs, 1 in 5 one fire an hour; ~45% Common, ~45% Interval, ~10% Alone;
+    ~80% placed on one node, ~10% on a group, ~10% on a group less that
+    node (``exclude_nids``).  Same seed (7), same keys and values as the
+    script's for the same clock."""
+    rng = np.random.default_rng(7)
+    node_ids = [f"bn{i:05d}" for i in range(n_nodes)]
+    store.put_many([(ks.node_key(n), "bench:1") for n in node_ids])
+    n_groups = 32
+    group_ids = []
+    gitems = []
+    for g in range(n_groups):
+        size = int(10 ** rng.uniform(1, np.log10(min(1000, n_nodes))))
+        members = rng.choice(n_nodes, size=size, replace=False)
+        gid = f"bg{g:02d}"
+        group_ids.append(gid)
+        doc = (f'{{"id":"{gid}","name":"{gid}","nids":['
+               + ",".join(f'"{node_ids[m]}"' for m in members) + "]}")
+        gitems.append((ks.group_key(gid), doc))
+    store.put_many(gitems)
+    items = []
+    phase_items = []
+    periods = rng.integers(30, 900, n_jobs)
+    kind_draw = rng.random(n_jobs)
+    nodes = rng.integers(0, n_nodes, n_jobs)
+    gsel = rng.integers(0, n_groups, n_jobs)
+    placement_draw = rng.random(n_jobs)
+    phase_off = rng.integers(0, 1 << 30, n_jobs)
+    for i in range(n_jobs):
+        r = i % 5
+        if r < 3:
+            timer = f"@every {int(periods[i])}s"
+            # anchors spread over each job's period: a long-lived fleet's
+            # aggregate fire rate is steady
+            anchor = now - int(phase_off[i]) % int(periods[i])
+            phase_items.append((ks.phase_key("bench", f"bj{i}", "r"),
+                                f"{timer}|{anchor}"))
+        elif r == 3:
+            timer = f"*/{int(periods[i]) % 28 + 2} * * * * *"
+        else:
+            timer = f"{i % 60} {i % 60} * * * *"
+        kind = 0 if kind_draw[i] < 0.45 else (2 if kind_draw[i] < 0.9
+                                              else 1)
+        if placement_draw[i] < 0.8:
+            place = f'"nids":["{node_ids[int(nodes[i])]}"]'
+        else:
+            place = f'"gids":["{group_ids[int(gsel[i])]}"]'
+            if placement_draw[i] >= 0.9:
+                place += f',"exclude_nids":["{node_ids[int(nodes[i])]}"]'
+        doc = (f'{{"name":"b{i}","command":"true","kind":{kind},'
+               f'"rules":[{{"id":"r","timer":"{timer}",{place}}}]}}')
+        items.append((f"{ks.cmd}bench/bj{i}", doc))
+        if len(items) >= 20_000:
+            store.put_many(items)
+            items = []
+        if len(phase_items) >= 20_000:
+            store.put_many(phase_items)
+            phase_items = []
+    if items:
+        store.put_many(items)
+    if phase_items:
+        store.put_many(phase_items)

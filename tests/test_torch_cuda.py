@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions, and the planner
-(disarmed and with both arms armed) and batched next-fire on the card against
-the same on the CPU.  Needs an NVIDIA GPU (the
+(disarmed and with both arms armed), batched next-fire and the scheduler
+service on the card against the same on the CPU.  Needs an NVIDIA GPU (the
 kernels have no CPU mode); without one every test here skips.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -22,7 +22,9 @@ from cronsun_tpu_torch.ops import kernels as k
 from cronsun_tpu_torch.ops import next_fire, tick
 from cronsun_tpu_torch.ops.schedule_table import build_table
 from cronsun_tpu_torch.synth import (arm_mixed, bench_mixed_specs,
-                                     completions, synth_state)
+                                     completions, seed_service_store,
+                                     synth_state)
+from test_torch_service_lock import check_windows_see_writes_whole
 
 pytestmark = pytest.mark.cuda
 
@@ -255,3 +257,39 @@ def test_next_fire_on_the_card_matches_the_cpu(cuda, tz, monkeypatch):
     long = dict(tz=tz, horizon_s=10 * 366 * 86400)
     assert np.array_equal(next_fire(gpu, T0, **long),
                           next_fire(cpu, T0, **long))
+
+
+def test_service_on_the_card_matches_the_cpu(cuda):
+    """The port's service on the card publishes the orders the same
+    service publishes on the CPU (which tests/test_torch_service.py holds
+    to the JAX package's), and its steps launch both kernels."""
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.sched import SchedulerService
+    from cronsun_tpu_torch.store import MemStore
+    ks = Keyspace()
+    out = []
+    for dev in (cuda, "cpu"):
+        store = MemStore()
+        seed_service_store(store, ks, 1500, 48, T0)
+        svc = SchedulerService(store, ks, job_capacity=2048, node_capacity=64,
+                               window_s=4, dispatch_ttl=3600.0,
+                               clock=lambda: float(T0), device=dev)
+        k.reset_launch_counts()
+        try:
+            t = T0
+            for _ in range(8):
+                svc.step(now=t)
+                # the next window's dispatch lands before the next reconcile
+                svc._resolve_handle(svc._pending_plan[1])
+                t = svc._next_epoch
+        finally:
+            svc.stop()
+        out.append((sorted((kv.key, kv.value)
+                           for kv in store.get_prefix(ks.dispatch)),
+                    store.get(ks.hwm).value, k.launch_counts()))
+    assert out[0][0] and out[0][:2] == out[1][:2]
+    assert all(out[0][2].values())
+
+
+def test_planner_writes_land_whole_on_the_card(cuda):
+    check_windows_see_writes_whole(cuda)

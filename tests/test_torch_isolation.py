@@ -21,7 +21,13 @@ FORBIDDEN = {"jax", "jaxlib", "cronsun_tpu"}
 def test_import_loads_no_jax():
     code = ("import sys, cronsun_tpu_torch, cronsun_tpu_torch.convert, "
             "cronsun_tpu_torch.synth, cronsun_tpu_torch.ops.planner, "
-            "cronsun_tpu_torch.ops.tick, cronsun_tpu_torch.cron; "
+            "cronsun_tpu_torch.ops.tick, cronsun_tpu_torch.cron, "
+            "cronsun_tpu_torch.log, cronsun_tpu_torch.core, "
+            "cronsun_tpu_torch.metrics, cronsun_tpu_torch.trace, "
+            "cronsun_tpu_torch.checkpoint, cronsun_tpu_torch.store, "
+            "cronsun_tpu_torch.store.sharded, cronsun_tpu_torch.sched, "
+            "cronsun_tpu_torch.sched.partition, "
+            "cronsun_tpu_torch.sched.publisher; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
@@ -45,9 +51,13 @@ def test_no_port_file_imports_jax_or_the_jax_package(path):
 
 
 def test_no_device_on_a_cpu_only_host_raises(monkeypatch):
+    from cronsun_tpu_torch.sched import SchedulerService
+    from cronsun_tpu_torch.store import MemStore
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TickPlanner(64, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SchedulerService(MemStore(), job_capacity=64, node_capacity=32)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
