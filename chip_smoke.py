@@ -76,6 +76,22 @@ Phases, each printing one JSON line:
    (``launches_service``), and a checkpoint of the card service restores
    into a fresh card service on the same store whose first window's
    orders equal the cold-loaded service's.
+13. launcher — the same deployment (seeded at the wall clock) served by
+   the port's ``StoreServer`` inside this script, and two scheduler
+   processes, ``python3 -m cronsun_tpu_torch.bin.sched`` with no
+   ``--device`` (so on the card): the leader cold-loads over TCP, the
+   standby starts once the leader's first checkpoint is on disk (so it
+   restores it); each one's seconds to ``READY``.  The script plays the
+   agents on a watch of the order prefix through the port's
+   ``RemoteStore`` (phase 12's rules; a lost watch fails).  After
+   ``LAUNCHER_WINDOWS`` leader windows every due (job, second) up to the
+   high-water mark ran once; then the leader is SIGKILLed, the seconds
+   to the new leader's first order are taken, and after
+   ``LAUNCHER_WINDOWS`` more windows every due second from the first
+   ran once, a second delivered twice is one the new leader re-planned
+   from the dead leader's mark (or an overflow re-plan), and neither
+   leader skipped a second.  SIGTERM stops the survivor: exit 0, and its
+   logged launch counts of both kernels above 0 (``launches_launcher``).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -132,6 +148,10 @@ SERVICE_WINDOW = 4
 SERVICE_CHECK_WINDOWS = 8
 SERVICE_TIMED_STEPS = 30
 SERVICE_NOW = T0
+# the launcher phase: leader windows checked before the SIGKILL and again
+# after the takeover, and the leader's checkpoint period (seconds)
+LAUNCHER_WINDOWS = 8
+LAUNCHER_CKPT_INTERVAL = 6
 
 
 def emit(obj) -> None:
@@ -1065,6 +1085,32 @@ class ServiceFleet:
             return False
         return node in nids or any(node in self.groups[g] for g in gids)
 
+    def order(self, key, value):
+        """(node, second, jobs) of one published order key, held to the
+        agents' rules: a broadcast (node None) is of a Common job, a bundle
+        runs exclusive jobs on a live node eligible for each."""
+        parts = key[len(self.ks.dispatch):].split("/")
+        if parts[0] == self.ks.BROADCAST:
+            ep, job, node = int(parts[1]), "/".join(parts[2:]), None
+            if self.jobs[job][0] != 0:
+                raise AssertionError(f"{key}: broadcast of an exclusive job")
+            self.n["broadcasts"] += 1
+            return node, ep, [job]
+        if len(parts) != 2:
+            raise AssertionError(f"unexpected order key {key}")
+        node, ep = parts[0], int(parts[1])
+        # members are "group/job" strings; a sampled bundle also carries
+        # one {"tb": ...} trace header, which agents skip
+        fires = [e for e in json.loads(value) if not isinstance(e, dict)]
+        self.n["bundles"] += 1
+        for job in fires:
+            if self.jobs[job][0] == 0:
+                raise AssertionError(f"{key}: Common job {job} bundled")
+            if not self.eligible(job, node):
+                raise AssertionError(f"{key}: {job} on a node that is "
+                                     f"not live and eligible")
+        return node, ep, fires
+
     def read(self, replanned):
         """Deliver what the last step published; ``replanned``: the seconds
         that step queued for an overflow re-plan."""
@@ -1073,25 +1119,7 @@ class ServiceFleet:
         for key, value in cur.items():
             if self.seen.get(key) == value:
                 continue
-            parts = key[len(self.ks.dispatch):].split("/")
-            if parts[0] == self.ks.BROADCAST:
-                ep, job, node = int(parts[1]), "/".join(parts[2:]), None
-                if self.jobs[job][0] != 0:
-                    raise AssertionError(f"{key}: broadcast of an exclusive job")
-                fires = [job]
-                self.n["broadcasts"] += 1
-            elif len(parts) == 2:
-                node, ep = parts[0], int(parts[1])
-                fires = json.loads(value)
-                self.n["bundles"] += 1
-                for job in fires:
-                    if self.jobs[job][0] == 0:
-                        raise AssertionError(f"{key}: Common job {job} bundled")
-                    if not self.eligible(job, node):
-                        raise AssertionError(f"{key}: {job} on a node that is "
-                                             f"not live and eligible")
-            else:
-                raise AssertionError(f"unexpected order key {key}")
+            node, ep, fires = self.order(key, value)
             for job in fires:
                 if (job, ep) in step:
                     raise AssertionError(f"({job}, {ep}) published twice in "
@@ -1343,6 +1371,306 @@ def phase_service(dev, check_windows=SERVICE_CHECK_WINDOWS,
     return counts
 
 
+class SchedProc:
+    """One ``python3 -m cronsun_tpu_torch.bin.sched`` process on the card
+    (no ``--device``): its output is drained into ``lines``, ``ready_s``
+    is its seconds from spawn to ``READY``."""
+
+    def __init__(self, addr, conf, node_id):
+        import threading
+        self.node_id = node_id
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        self._t0 = time.perf_counter()
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "cronsun_tpu_torch.bin.sched",
+             "--store", addr, "--conf", conf, "--node-id", node_id],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines, self.ready_s = [], None
+        self._reader = threading.Thread(target=self._drain, daemon=True)
+        self._reader.start()
+
+    def _drain(self):
+        for line in self.p.stdout:
+            if self.ready_s is None and line.startswith("READY"):
+                self.ready_s = time.perf_counter() - self._t0
+            self.lines.append(line)
+
+    def check_alive(self):
+        if self.p.poll() is not None:
+            raise AssertionError(f"{self.node_id} exited rc {self.p.returncode}:"
+                                 f"\n{''.join(self.lines[-40:])}")
+
+    def stop(self, sig, timeout=60.0) -> int:
+        import signal
+        if self.p.poll() is None:
+            self.p.send_signal(sig)
+        try:
+            rc = self.p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.p.send_signal(signal.SIGKILL)
+            rc = self.p.wait(timeout=timeout)
+            self.lines.append(f"chip_smoke: no exit within {timeout} s of "
+                              f"signal {sig}; killed\n")
+        self._reader.join(timeout)
+        return rc
+
+    def save_log(self):
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, f"launcher_{self.node_id}.log"),
+                  "w") as f:
+            f.writelines(self.lines)
+
+
+class WatchedAgents:
+    """The launcher phase's agents, played on a watch of the order prefix
+    through the port's ``RemoteStore``: a thread only queues each batch of
+    events with its arrival time, and :meth:`process` delivers them by
+    ``ServiceFleet``'s rules (each order checked by ``fleet.order``, each
+    (job, second) run once; a re-delivery is recorded for the caller to
+    judge).  A lost watch fails the phase."""
+
+    def __init__(self, fleet, client):
+        import collections
+        import threading
+        self.fleet = fleet
+        self.w = client.watch(fleet.ks.dispatch)
+        self.seen = {}
+        self.redelivered = []         # (job, second), each fenced
+        self.min_ep = None
+        self.first_after, self.first_t = None, None
+        self.error = None
+        self._q = collections.deque()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread.start()
+
+    def _pump(self):
+        try:
+            while not self._stop.is_set():
+                ev = self.w.get(timeout=0.2)
+                if ev is not None:
+                    self._q.append((time.perf_counter(), [ev] + self.w.drain()))
+        except Exception as e:  # noqa: BLE001 — WatchLost or the wire: fatal
+            self.error = e
+
+    def process(self):
+        from cronsun_tpu_torch.store import PUT
+        if self.error is not None:
+            raise AssertionError(f"the order watch failed: {self.error!r}")
+        runs = self.fleet.runs
+        while self._q:
+            t, batch = self._q.popleft()
+            for ev in batch:
+                if ev.type != PUT:
+                    continue
+                if self.first_t is None and self.first_after is not None \
+                        and t >= self.first_after:
+                    self.first_t = t
+                key, value = ev.kv.key, ev.kv.value
+                if self.seen.get(key) == value:
+                    continue
+                self.seen[key] = value
+                node, ep, fires = self.fleet.order(key, value)
+                self.min_ep = ep if self.min_ep is None else min(self.min_ep, ep)
+                for job in fires:
+                    self.fleet.n["deliveries"] += 1
+                    if (job, ep) in runs:
+                        self.fleet.n["fenced_redeliveries"] += 1
+                        self.redelivered.append((job, ep))
+                    else:
+                        runs[(job, ep)] = node
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(5)
+        self.w.close()
+
+
+def _check_due(fleet, lo, hi, where):
+    """Every (job, second) in [lo, hi) the scalar evaluation calls due ran,
+    and nothing else did."""
+    due = fleet.due(lo, hi)
+    ran = {r for r in fleet.runs if lo <= r[1] < hi}
+    if ran - due:
+        raise AssertionError(f"{where}: {len(ran - due)} runs not due, e.g. "
+                             f"{sorted(ran - due)[:3]}")
+    if due - ran:
+        raise AssertionError(f"{where}: {len(due - ran)} due fires never ran, "
+                             f"e.g. {sorted(due - ran)[:3]}")
+    return len(due)
+
+
+def phase_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES, W=SERVICE_WINDOW,
+                   windows=LAUNCHER_WINDOWS):
+    """Two scheduler processes on the card against the port's TCP store,
+    played agents, a SIGKILL failover (see the module docstring, phase 13).
+    Returns the survivor's kernel launch counts."""
+    import shutil
+    import signal
+    import tempfile
+
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.store import MemStore, RemoteStore, StoreServer
+    from cronsun_tpu_torch.synth import seed_service_store
+    ks = Keyspace()
+    tmp = tempfile.mkdtemp(prefix="cronsun-launcher-")
+    ckpt = os.path.join(tmp, "ckpt")
+    out = {"phase": "launcher", "jobs": n_jobs, "nodes": n_nodes,
+           "window_s": W, "windows_checked": windows}
+    procs, server, client, agents = {}, None, None, None
+    try:
+        t = time.perf_counter()
+        store = MemStore()
+        seed_service_store(store, ks, n_jobs, n_nodes, int(time.time()))
+        fleet = ServiceFleet(store, ks)
+        server = StoreServer(store).start()
+        addr = f"{server.host}:{server.port}"
+        client = RemoteStore(server.host, server.port)
+        agents = WatchedAgents(fleet, client)
+        out["seed_s"] = time.perf_counter() - t
+        conf = os.path.join(tmp, "conf.json")
+        with open(conf, "w") as f:
+            json.dump({"window_s": W, "job_capacity": n_jobs,
+                       "node_capacity": n_nodes, "checkpoint_dir": ckpt,
+                       "checkpoint_interval": LAUNCHER_CKPT_INTERVAL,
+                       "log_db": os.path.join(tmp, "unused.db")}, f)
+
+        def pump(cond, timeout, what):
+            """Deliver orders until ``cond()`` holds; fails past ``timeout``
+            s or when a scheduler process not killed on purpose exits."""
+            deadline = time.perf_counter() + timeout
+            while True:
+                agents.process()
+                if cond():
+                    return
+                for p in procs.values():
+                    if p.p.returncode is None:
+                        p.check_alive()
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"launcher: {what} not within "
+                                         f"{timeout} s")
+                time.sleep(0.05)
+
+        def leader():
+            kv = client.get(ks.leader)
+            return kv.value if kv is not None else None
+
+        def hwm():
+            """The leader's high-water mark; 0 before its first window's
+            orders are all published."""
+            kv = client.get(ks.hwm)
+            return int(kv.value) if kv is not None else 0
+
+        def snapshot(node_id):
+            kv = client.get(ks.metrics_key("sched", node_id))
+            return json.loads(kv.value) if kv is not None else {}
+
+        # the leader cold-loads; the standby starts once the leader's first
+        # checkpoint is on disk, so its start restores it
+        procs["sched-a"] = SchedProc(addr, conf, "sched-a")
+        pump(lambda: procs["sched-a"].ready_s is not None, 300, "sched-a READY")
+        pump(lambda: leader() == "sched-a", 60, "sched-a leading")
+        pump(lambda: os.path.exists(os.path.join(ckpt, "sched.ckpt")), 120,
+             "the leader's first checkpoint")
+        procs["sched-b"] = SchedProc(addr, conf, "sched-b")
+        pump(lambda: procs["sched-b"].ready_s is not None, 300, "sched-b READY")
+        out["ready_s"] = {k: p.ready_s for k, p in procs.items()}
+
+        # before the kill: `windows` leader windows, each due second once
+        pump(lambda: agents.min_ep is not None
+             and hwm() >= agents.min_ep + windows * W, 60 + 2 * windows * W,
+             f"{windows} leader windows")
+        lo, hi = agents.min_ep, hwm()
+        t = time.perf_counter()
+        pump(lambda: time.perf_counter() > t + 1.0, 10, "in-flight orders")
+        out["before_kill"] = {"seconds": [lo, hi],
+                              "due_fires": _check_due(fleet, lo, hi,
+                                                      "before the kill")}
+        old = leader()
+        new = ({"sched-a", "sched-b"} - {old}).pop()
+        old_snap = snapshot(old)
+
+        # failover: SIGKILL the leader; no order can come from it a second
+        # after its death, and none from the standby before the lease ends
+        procs[old].stop(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        agents.first_after = t_kill + 1.0
+        hwm_dead = hwm()
+        pump(lambda: leader() == new, 60, f"{new} leading")
+        lease_s = time.perf_counter() - t_kill
+        pump(lambda: agents.first_t is not None, 60, "the new leader's first order")
+        out.update(killed=old, survivor=new, hwm_at_kill=hwm_dead,
+                   lease_wait_s=lease_s, takeover_s=agents.first_t - t_kill)
+
+        pump(lambda: hwm() >= hwm_dead + windows * W, 60 + 2 * windows * W,
+             f"{windows} windows of the new leader")
+        hi2 = hwm()
+        t = time.perf_counter()
+        pump(lambda: time.perf_counter() > t + 1.0, 10, "in-flight orders")
+        due = _check_due(fleet, lo, hi2, "across the failover")
+        snap = snapshot(new)
+        # a (job, second) delivered twice ran once (the played fence); the
+        # second delivery is allowed for a second at or past the dead
+        # leader's high-water mark (re-planned by its successor) or when a
+        # leader re-planned seconds for overflow
+        overflow = (old_snap.get("overflow_late_fires_total", 0)
+                    + snap.get("overflow_late_fires_total", 0))
+        bad = [r for r in agents.redelivered if r[1] < hwm_dead]
+        if bad and not overflow:
+            raise AssertionError(f"{len(bad)} re-deliveries of seconds before "
+                                 f"the dead leader's mark, e.g. {bad[:3]}")
+        if snap.get("skipped_seconds_total", 0) or \
+                old_snap.get("skipped_seconds_total", 0):
+            raise AssertionError(f"skipped seconds: {old_snap} {snap}")
+        restored = any("checkpoint RESTORED" in ln for ln in procs[new].lines)
+        out.update(
+            checked_seconds=[lo, hi2], due_fires=due,
+            runs=len([r for r in fleet.runs if lo <= r[1] < hi2]),
+            orders=len(agents.seen), **fleet.n,
+            failover_redeliveries=len(agents.redelivered),
+            overflow_late_fires=overflow,
+            skipped_seconds_total=snap.get("skipped_seconds_total"),
+            takeover_restored=restored,
+            checkpoint_restored_snapshot=snap.get("checkpoint_restored"),
+            step_p50_ms=snap.get("sched_step_p50_ms"),
+            step_p99_ms=snap.get("sched_step_p99_ms"),
+            tick_p50_ms=snap.get("tick_p50_ms"),
+            tick_p99_ms=snap.get("tick_p99_ms"),
+            killed_leader_step_p50_ms=old_snap.get("sched_step_p50_ms"),
+            killed_leader_step_p99_ms=old_snap.get("sched_step_p99_ms"))
+
+        # the survivor exits 0 on SIGTERM and logs both kernels' launches
+        rc = procs[new].stop(signal.SIGTERM)
+        if rc != 0:
+            raise AssertionError(f"{new} exited {rc} on SIGTERM:\n"
+                                 f"{''.join(procs[new].lines[-40:])}")
+        line = [ln for ln in procs[new].lines if "kernel launch counts:" in ln]
+        if not line:
+            raise AssertionError(f"{new} logged no launch counts")
+        counts = json.loads(line[-1].split("kernel launch counts:", 1)[1])
+        if sorted(counts) != ["bid_argmin", "fanout_add"] or \
+                not all(counts.values()):
+            raise AssertionError(f"a kernel never launched in {new}: {counts}")
+        out.update(launches_launcher=counts, nvidia_smi=nvidia_smi_line())
+    finally:
+        for p in procs.values():
+            p.stop(signal.SIGKILL, timeout=30)
+            p.save_log()
+        if agents is not None:
+            agents.close()
+        if client is not None:
+            client.close()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
@@ -1364,10 +1692,12 @@ def main(argv=None) -> int:
     armed = phase_headline_armed(dev, args.windows, args.profile)
     phase_next_fire(dev)
     service = phase_service(dev)
+    launcher = phase_launcher()
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
         r["launches_service"] = service[r["name"]]
+        r["launches_launcher"] = launcher[r["name"]]
         r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
                      for t in path if t["name"] == r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [

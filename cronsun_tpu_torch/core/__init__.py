@@ -1,5 +1,5 @@
 """Domain core: jobs, rules, groups, nodes, accounts, key layout (copy of
-``cronsun_tpu/core/``; ``breaker.py`` comes with the sharded store client).
+``cronsun_tpu/core/``).
 
 The Python analogue of the reference's root package (Job/Group/Node/Process/
 JobLog/Account + etcd key helpers).  Storage-agnostic: models serialize to

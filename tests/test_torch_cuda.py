@@ -293,3 +293,65 @@ def test_service_on_the_card_matches_the_cpu(cuda):
 
 def test_planner_writes_land_whole_on_the_card(cuda):
     check_windows_see_writes_whole(cuda)
+
+
+def test_entry_on_the_card_matches_the_cpu(cuda):
+    from cronsun_tpu_torch import entry
+    k.reset_launch_counts()
+    fn, args = entry.entry()
+    got = [t.cpu() for t in fn(*args)]
+    assert all(k.launch_counts().values())
+    fn, args = entry.entry(device="cpu")
+    for g, w in zip(got, fn(*args)):
+        assert torch.equal(g, w)
+
+
+def test_launcher_on_the_card_publishes_and_exits_clean(cuda, tmp_path):
+    """``python -m cronsun_tpu_torch.bin.sched`` with no ``--device`` runs on
+    the card: READY, orders published through the TCP store, exit 0 on
+    SIGTERM with both kernels' launch counts logged above zero."""
+    import json
+    import os
+    import signal
+    import time
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.store import MemStore, StoreServer
+    ks = Keyspace()
+    store = MemStore()
+    seed_service_store(store, ks, 1500, 48, int(time.time()))
+    server = StoreServer(store).start()
+    conf = tmp_path / "conf.json"
+    conf.write_text(json.dumps({"window_s": 2, "job_capacity": 2048,
+                                "node_capacity": 64,
+                                "log_db": str(tmp_path / "unused.db")}))
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    p = subprocess.Popen(
+        [sys.executable, "-m", "cronsun_tpu_torch.bin.sched", "--store",
+         f"{server.host}:{server.port}", "--conf", str(conf)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        lines = []
+        for line in p.stdout:
+            lines.append(line)
+            if line.startswith("READY"):
+                break
+        assert lines and lines[-1].startswith("READY"), "".join(lines)
+        deadline = time.time() + 60
+        while not store.get_prefix(ks.dispatch):
+            assert time.time() < deadline, "no orders published"
+            time.sleep(0.2)
+        p.send_signal(signal.SIGTERM)
+        rest, _ = p.communicate(timeout=60)
+        assert p.returncode == 0, "".join(lines) + rest
+        counts = [ln for ln in rest.splitlines()
+                  if "kernel launch counts:" in ln]
+        assert counts, rest
+        launches = json.loads(counts[-1].split("kernel launch counts:", 1)[1])
+        assert launches["bid_argmin"] > 0 and launches["fanout_add"] > 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        server.stop()

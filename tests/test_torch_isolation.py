@@ -27,7 +27,14 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.checkpoint, cronsun_tpu_torch.store, "
             "cronsun_tpu_torch.store.sharded, cronsun_tpu_torch.sched, "
             "cronsun_tpu_torch.sched.partition, "
-            "cronsun_tpu_torch.sched.publisher; "
+            "cronsun_tpu_torch.sched.publisher, "
+            "cronsun_tpu_torch.bin.sched, cronsun_tpu_torch.bin.common, "
+            "cronsun_tpu_torch.conf, cronsun_tpu_torch.health, "
+            "cronsun_tpu_torch.events, cronsun_tpu_torch.tlsutil, "
+            "cronsun_tpu_torch.store.remote, cronsun_tpu_torch.store.wire, "
+            "cronsun_tpu_torch.repl, cronsun_tpu_torch.repl.client, "
+            "cronsun_tpu_torch.core.breaker, cronsun_tpu_torch.chaos, "
+            "cronsun_tpu_torch.chaos.hooks, cronsun_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
@@ -58,6 +65,9 @@ def test_no_device_on_a_cpu_only_host_raises(monkeypatch):
         TickPlanner(64, 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SchedulerService(MemStore(), job_capacity=64, node_capacity=32)
+    from cronsun_tpu_torch.entry import entry
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
