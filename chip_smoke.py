@@ -18,11 +18,16 @@ Phases, each printing one JSON line:
    whose words are not 16-byte aligned (W32 = 5, 7), one row, all nodes
    closed, all loads equal, and buckets of rows of a larger table with
    ``rows`` (repeats, row 0 as padding) and ``active`` (random, prefix).
+   K1n bid_argmin_natural against ``bid_block_plain(col0,
+   bitplane_ties=False)``, best and choice exactly: node blocks at col0 0,
+   32 and 5120, past shared memory, W32 = 5 and 7, one row, all loads
+   equal, all nodes closed, and buckets with ``rows`` and ``active``.
 4. kernel_times — on a synthetic tile at the main path's shape (K = 16384,
    N = 10240, no gather): each kernel's time (also timed back to back
    without a pre-filled stream, and with no row to work on), its plain
    version's time, the least time the card could take, and the kernels the
-   card ran for one call (torch.profiler).
+   card ran for one call (torch.profiler); K1n on the 2-D mesh
+   headline's per-shard node block (K = 8192, N = 5120, col0 5120).
 5. plan_equivalence — TickPlanner on the card against TickPlanner on the CPU
    (plain path) from one seeded state at the config-sample shape (65536 jobs
    x 1024 nodes, W = 4): every TickPlan field, the final load and rem_cap
@@ -92,6 +97,29 @@ Phases, each printing one JSON line:
    from the dead leader's mark (or an overflow re-plan), and neither
    leader skipped a second.  SIGTERM stops the survivor: exit 0, and its
    logged launch counts of both kernels above 0 (``launches_launcher``).
+14. mesh_equivalence — the mesh planners with every shard on the card
+   (``cuda:0``) against the same planners on the CPU, from phase 5's
+   seeded state (65536 jobs x 1024 nodes, W = 4, 5 windows, caps 4
+   re-opened every window): the 1-D mesh at D = 2 and the 2-D mesh at
+   2 x 2, each bucket-sharded with dense and with compacted demand and
+   replicated.  Every TickPlan field, the final load and rem_cap
+   identical.
+15. mesh_headline — phase 7's deployment (2^20 jobs x 10240 nodes, W = 8,
+   rounds 2) on the 1-D mesh at D = 2 and the 2-D mesh at 2 x 2, shards on
+   ``cuda:0``, one bucket of 32768 rows (k_local 16384): a warm-up window
+   and ``MESH_HEADLINE_WINDOWS`` timed windows, the launch counts set to
+   0 before and read after (``launches_mesh``; K1 on the 1-D mesh, K1n on
+   the 2-D one, K2 on both), ms per planned second, the plans checked in
+   numpy (every due row fired, every fire due, every exclusive fire on an
+   eligible node within capacity) and the bytes the collectives moved per
+   tick equal to ``estimate_collective_bytes``.
+16. mesh_launcher — phase 13's deployment served by the in-script
+   ``StoreServer`` to two scheduler processes on the card forming one
+   mesh, ``--mesh 2 --mesh-hosts 2 --mesh-proc-id 0|1`` (gloo between
+   them): both ranks' seconds to ``READY``; over
+   ``MESH_LAUNCHER_WINDOWS`` leader windows every due (job, second) runs
+   once; SIGTERM to rank 0: exit 0 with K1 and K2 launched, and the worker
+   released with exit 0 and its plan steps logged.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -152,6 +180,12 @@ SERVICE_NOW = T0
 # after the takeover, and the leader's checkpoint period (seconds)
 LAUNCHER_WINDOWS = 8
 LAUNCHER_CKPT_INTERVAL = 6
+# the kernels a single-device planner launches (K1n runs on the 2-D mesh)
+SINGLE_DEVICE_KERNELS = ("bid_argmin", "fanout_add")
+# the mesh phases: timed windows of each mesh headline, and the leader
+# windows the mesh launcher phase checks
+MESH_HEADLINE_WINDOWS = 8
+MESH_LAUNCHER_WINDOWS = 4
 
 
 def emit(obj) -> None:
@@ -297,6 +331,25 @@ def _check_case(k, name, packed, load, w_int, w_frac, rows=None, active=None):
             "k2_frac_max_abs": float((out_f - ref_f).abs().max())}
 
 
+def _check_k1n(k, name, packed, load, col0, rows=None, active=None):
+    """K1n equal to its plain version (best and choice exactly)."""
+    import torch
+    best_p, choice_p = k.bid_argmin_natural_plain(packed, load, col0, rows,
+                                                  active)
+    best, choice = k.bid_argmin_natural(packed, load, col0, rows=rows,
+                                        active=active)
+    torch.cuda.synchronize()
+    if not (torch.equal(choice, choice_p) and torch.equal(best, best_p)):
+        bad = int((choice != choice_p).sum())
+        raise AssertionError(f"K1n {name}: {bad} choices differ")
+    return {"case": name, "K": int(best_p.shape[0]),
+            "N": packed.shape[1] * 32, "col0": col0,
+            "rows": None if rows is None else int(rows.shape[0]),
+            "active": None if active is None else int(active.sum()),
+            "no_candidate": int((~torch.isfinite(best_p)).sum()),
+            "max_abs": k1_max_abs(best, best_p), "equal": True}
+
+
 def k1_work(packed, load, best, rows=None, active=None):
     """(bytes, set bits, bits that must be hashed) of one K1 call: each
     active row read once, plus rows/active/load_eff in and best/choice out.
@@ -396,7 +449,30 @@ def phase_kernels(dev):
         rows, active = _bucket(K, J, 300 + seed, dev, prefix)
         checks.append(_check_case(k, name, table, load, w_int, w_frac,
                                   rows, active))
-    emit({"phase": "kernels", "checks": checks})
+    # K1n: node blocks at global offsets (the 2-D mesh's per-block bid)
+    k1n = []
+    for seed, (name, K, w32, col0) in enumerate((
+            ("block_col0_0", 8192, 160, 0), ("block_col0_32", 2048, 160, 32),
+            ("block_col0_5120", 8192, 160, 5120),
+            ("block_past_48k", 2048, 400, 5120),
+            ("block_w5", 999, 5, 32), ("block_w7", 1001, 7, 5120),
+            ("block_one_row", 1, 160, 64))):
+        packed, load, _, _ = _random_tile(K, w32, 400 + seed, dev)
+        tiles[name] = (packed, load)
+        k1n.append(_check_k1n(k, name, packed, load, col0))
+    packed, load = tiles["block_col0_5120"]
+    k1n.append(_check_k1n(k, "block_all_loads_equal", packed,
+                          torch.zeros_like(load), 5120))
+    k1n.append(_check_k1n(k, "block_all_closed", packed,
+                          torch.full_like(load, float("inf")), 5120))
+    for seed, (name, J, K, w32, col0, prefix) in enumerate((
+            ("block_bucket", 65536, 16384, 160, 5120, True),
+            ("block_bucket_random_active", 65536, 8191, 160, 0, False),
+            ("block_bucket_w5", 3000, 1001, 5, 96, False))):
+        table, load, _, _ = _random_tile(J, w32, 500 + seed, dev)
+        rows, active = _bucket(K, J, 600 + seed, dev, prefix)
+        k1n.append(_check_k1n(k, name, table, load, col0, rows, active))
+    emit({"phase": "kernels", "checks": checks, "k1n_checks": k1n})
 
     # times on the synthetic tile: K = 16384, N = 10240, half the bits set,
     # loads in {0..3}, every row active, no gather
@@ -440,6 +516,30 @@ def phase_kernels(dev):
         "bound_ms": b2, "bound_by": by2, "library_ms": None,
         "device_kernels_per_call": device_kernels_per_call(
             lambda: k.fanout_add(packed, w_int))}]
+    # K1n at the 2-D headline's per-shard node block: K = 8192, N = 5120
+    packed, load = tiles["block_col0_5120"]
+    Kn, wn = packed.shape
+    best, _ = k.bid_argmin_natural_plain(packed, load, 5120)
+    work_n = k1_work(packed, load, best)
+    bn, byn = k1_bound(work_n)
+    rows.append({
+        "name": "bid_argmin_natural", "route": "cuda",
+        "source": "cronsun_tpu_torch/csrc/bid_argmin.cu",
+        "replaces": "cronsun_tpu/ops/assign.py:55 (bid_block_jnp, "
+                    "bitplane_ties=False; called at "
+                    "cronsun_tpu/parallel/mesh.py:319)",
+        "launches": 0, "max_abs_err": max(c["max_abs"] for c in k1n),
+        "ms": cuda_ms(lambda: k.bid_argmin_natural(packed, load, 5120), 50),
+        "ms_back_to_back": cuda_ms(
+            lambda: k.bid_argmin_natural(packed, load, 5120), 50,
+            prefill=False),
+        "plain_ms": cuda_ms(
+            lambda: k.bid_argmin_natural_plain(packed, load, 5120), 5),
+        "bound_ms": bn, "bound_by": byn, "library_ms": None,
+        "shape": {"K": Kn, "N": wn * 32, "col0": 5120},
+        "work": dict(zip(("bytes", "set_bits", "must_hash"), work_n)),
+        "device_kernels_per_call": device_kernels_per_call(
+            lambda: k.bid_argmin_natural(packed, load, 5120))})
     emit({"phase": "kernel_times", "shape": {"K": K, "N": w32 * 32},
           "timings": rows})
     return rows
@@ -542,7 +642,7 @@ def phase_headline(dev, n_windows, profile, J=1 << 20, N=10240,
     for h in handles:
         plans.append(p.gather_window(h))
     counts = k.launch_counts()                  # ... and ends
-    if not all(counts.values()):
+    if not all(counts[n] for n in SINGLE_DEVICE_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     per_tick = np.diff(stamps) / W * 1e3
     for i in (0, len(plans) // 2, len(plans) - 1):
@@ -665,11 +765,12 @@ def phase_path_times(p, W, SLA):
 
 
 def profile_windows(p, W, SLA, n=4, name="headline", epoch_s=T0 + 50_000,
-                    after_window=None):
+                    after_window=None, plan=None):
     """Device time by op over ``n`` headline windows, each gathered before
-    the next (``after_window(plans)`` runs after each gather); device
-    operations (kernels, copies, memsets) per planned second, and the
-    calls that wait for the device (``SYNC_EVENTS``)."""
+    the next (``after_window(plans)`` runs after each gather; ``plan(ep)``,
+    when given, plans the window at ``ep`` instead of ``p``'s dispatch and
+    gather); device operations (kernels, copies, memsets) per planned
+    second, and the calls that wait for the device (``SYNC_EVENTS``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -677,8 +778,9 @@ def profile_windows(p, W, SLA, n=4, name="headline", epoch_s=T0 + 50_000,
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         for i in range(n):
-            plans = p.gather_window(p.plan_window_async(epoch_s + i * W, W,
-                                                        sla_bucket=SLA))
+            plans = (plan(epoch_s + i * W) if plan is not None else
+                     p.gather_window(p.plan_window_async(
+                         epoch_s + i * W, W, sla_bucket=SLA)))
             if after_window is not None:
                 after_window(plans)
         wall_ms = (time.perf_counter() - t) * 1e3
@@ -934,7 +1036,7 @@ def phase_headline_armed(dev, n_windows, profile, J=1 << 20, N=10240,
     for h in handles:
         gather(h)
     counts = k.launch_counts()                  # ... and ends
-    if not all(counts.values()):
+    if not all(counts[n] for n in SINGLE_DEVICE_KERNELS):
         raise AssertionError(f"a kernel of the armed path never launched: "
                              f"{counts}")
     peak = torch.cuda.max_memory_allocated()
@@ -1319,7 +1421,7 @@ def phase_service(dev, check_windows=SERVICE_CHECK_WINDOWS,
         # the window the last step handed to the dispatch thread
         card._resolve_handle(card._pending_plan[1])
         counts = k.launch_counts()              # ... and ends
-        if not all(counts.values()):
+        if not all(counts[n] for n in SINGLE_DEVICE_KERNELS):
             raise AssertionError(f"a kernel never launched in the service's "
                                  f"steps: {counts}")
         out.update(
@@ -1373,10 +1475,10 @@ def phase_service(dev, check_windows=SERVICE_CHECK_WINDOWS,
 
 class SchedProc:
     """One ``python3 -m cronsun_tpu_torch.bin.sched`` process on the card
-    (no ``--device``): its output is drained into ``lines``, ``ready_s``
-    is its seconds from spawn to ``READY``."""
+    (no ``--device``; ``extra`` flags appended): its output is drained into
+    ``lines``, ``ready_s`` is its seconds from spawn to ``READY``."""
 
-    def __init__(self, addr, conf, node_id):
+    def __init__(self, addr, conf, node_id, *extra):
         import threading
         self.node_id = node_id
         env = dict(os.environ)
@@ -1386,7 +1488,7 @@ class SchedProc:
         self._t0 = time.perf_counter()
         self.p = subprocess.Popen(
             [sys.executable, "-m", "cronsun_tpu_torch.bin.sched",
-             "--store", addr, "--conf", conf, "--node-id", node_id],
+             "--store", addr, "--conf", conf, "--node-id", node_id, *extra],
             cwd=HERE, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self.lines, self.ready_s = [], None
@@ -1652,10 +1754,297 @@ def phase_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES, W=SERVICE_WINDOW,
         if not line:
             raise AssertionError(f"{new} logged no launch counts")
         counts = json.loads(line[-1].split("kernel launch counts:", 1)[1])
-        if sorted(counts) != ["bid_argmin", "fanout_add"] or \
-                not all(counts.values()):
+        if not all(counts.get(n) for n in SINGLE_DEVICE_KERNELS):
             raise AssertionError(f"a kernel never launched in {new}: {counts}")
         out.update(launches_launcher=counts, nvidia_smi=nvidia_smi_line())
+    finally:
+        for p in procs.values():
+            p.stop(signal.SIGKILL, timeout=30)
+            p.save_log()
+        if agents is not None:
+            agents.close()
+        if client is not None:
+            client.close()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return counts
+
+
+def _mesh_grid(shape, dev):
+    return np.array([dev] * int(np.prod(shape)), dtype=object).reshape(shape)
+
+
+MESHES = (("1d_D2", "ShardedTickPlanner", (2,)),
+          ("2d_2x2", "Sharded2DTickPlanner", (2, 2)))
+
+
+def phase_mesh_equivalence(dev, J=65536, N=1024, windows=5, W=4):
+    """The mesh planners with their shards on the card against the same
+    planners on the CPU, from one seeded state at the config-sample shape:
+    the 1-D mesh at D = 2 and the 2-D mesh at 2 x 2, each with the
+    bucket-sharded reconcile in both demand formats and the replicated
+    one; caps 4 re-opened every window.  Every TickPlan field, the final
+    load and rem_cap identical."""
+    import torch
+    from cronsun_tpu_torch.convert import install_mesh_state
+    from cronsun_tpu_torch.parallel import mesh as pm
+    from cronsun_tpu_torch.synth import synth_state
+    state = synth_state(J, N, seed=7, node_cap=4, empty_rows=0.02)
+    t = time.perf_counter()
+    runs = []
+    for name, cls, shape in MESHES:
+        for kw in (dict(shard_bids=True, demand_format="dense"),
+                   dict(shard_bids=True, demand_format="compacted"),
+                   dict(shard_bids=False)):
+            pair = []
+            for d in (dev, torch.device("cpu")):
+                p = getattr(pm, cls)(pm.Mesh(_mesh_grid(shape, d)), J, N,
+                                     max_fire_bucket=16384, **kw)
+                install_mesh_state(p, state)
+                pair.append(p)
+            gpu, cpu = pair
+            fired = placed = 0
+            for i in range(windows):
+                for p in pair:
+                    p.set_node_capacity(list(range(N)), [4] * N)
+                got = gpu.plan_window(T0 + W * i, W)
+                ref = cpu.plan_window(T0 + W * i, W)
+                _compare_plans(ref, got, f"mesh {name} {kw} window {i}")
+                fired += sum(p.total_fired for p in got)
+                placed += sum(int((p.assigned >= 0).sum()) for p in got)
+            if not (torch.equal(gpu.load.cpu(), cpu.load)
+                    and torch.equal(gpu.rem_cap.cpu(), cpu.rem_cap)):
+                raise AssertionError(f"mesh {name} {kw}: load / rem_cap "
+                                     f"differ")
+            if placed == 0:
+                raise AssertionError("nothing was placed: vacuous")
+            runs.append({"mesh": name, **kw, "fired": fired,
+                         "placed": placed, "identical": True})
+    emit({"phase": "mesh_equivalence", "J": J, "N": N, "W": W,
+          "windows": windows, "runs": runs,
+          "wall_s": time.perf_counter() - t})
+
+
+def _check_mesh_headline(state, plans, N):
+    """Every fire is due and every due row fired (no overflow at this
+    bucket); every exclusive fire placed on an eligible node within its
+    capacity, every Common fire unplaced."""
+    t_rel = np.int64(plans[0].epoch_s - EPOCH)
+    period = state["period"].astype(np.int64)
+    phase = state["phase_mod"].astype(np.int64)
+    for i, p in enumerate(plans):
+        due = np.nonzero((phase - (t_rel + i)) % period == 0)[0]
+        if p.overflow:
+            raise AssertionError(f"overflow {p.overflow} at the mesh headline")
+        if not np.array_equal(np.sort(p.fired), due):
+            raise AssertionError(f"second {p.epoch_s}: fire set != due rows")
+        ex = state["exclusive"][p.fired]
+        a = p.assigned
+        if (a[~ex] != -1).any() or (a[ex] < 0).any() or (a >= N).any():
+            raise AssertionError(f"second {p.epoch_s}: a placement is "
+                                 f"missing, out of range or of a Common job")
+        xs, ax = p.fired[ex], a[ex]
+        words = state["elig"][xs, ax // 32]
+        if not ((words >> (ax % 32).astype(np.uint32)) & 1).all():
+            raise AssertionError("placement on an ineligible node")
+        if (np.bincount(ax, minlength=N) > state["rem_cap"]).any():
+            raise AssertionError("placements over a node's capacity")
+
+
+def phase_mesh_headline(dev, n_windows=MESH_HEADLINE_WINDOWS,
+                        profile=False, J=1 << 20, N=10240, SLA=32768, W=8):
+    """The headline deployment on the mesh planners, every shard on the
+    card: the 1-D mesh at D = 2 and the 2-D mesh at 2 x 2, rounds 2.  One
+    bucket of ``SLA`` rows holds both kinds (the mesh planners do not
+    split them), so k_local = 16384 per jobs shard takes a second's ~20.8k
+    fires.  One warm-up window, then ``n_windows`` timed windows with the
+    kernels' launch counts set to 0 before and read after; plans checked
+    in numpy (:func:`_check_mesh_headline`), and the bytes the collectives
+    moved per tick against the estimate; ``profile`` adds a profiler pass
+    of 2 windows per mesh.  Returns {mesh: launch counts}."""
+    import torch
+    from cronsun_tpu_torch.convert import install_mesh_state
+    from cronsun_tpu_torch.ops import kernels as k
+    from cronsun_tpu_torch.parallel import mesh as pm
+    from cronsun_tpu_torch.synth import synth_state
+    state = synth_state(J, N, seed=2, specs=None, node_cap=1 << 20)
+    out, counts_by = {"phase": "mesh_headline", "J": J, "N": N, "W": W,
+                      "sla": SLA, "rounds": 2, "timed_windows": n_windows,
+                      "meshes": []}, {}
+    for name, cls, shape in MESHES:
+        t = time.perf_counter()
+        p = getattr(pm, cls)(pm.Mesh(_mesh_grid(shape, dev)), J, N, rounds=2,
+                             max_fire_bucket=SLA)
+        install_mesh_state(p, state)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        p.plan_window(T0, W)                    # warm-up
+        k.reset_launch_counts()                 # the mesh's run starts
+        ms, plans = [], []
+        for i in range(n_windows):
+            t = time.perf_counter()
+            plans.append(p.plan_window(T0 + 1000 + i * W, W))
+            ms.append((time.perf_counter() - t) * 1e3 / W)
+        counts = k.launch_counts()              # ... and ends
+        need = ("bid_argmin_natural" if p.Dn > 1 else "bid_argmin",
+                "fanout_add")
+        if not all(counts[n] for n in need):
+            raise AssertionError(f"{name}: a kernel of the path never "
+                                 f"launched: {counts}")
+        for i in (0, n_windows // 2, n_windows - 1):
+            _check_mesh_headline(state, plans[i], N)
+        if not torch.isfinite(p.load).all():
+            raise AssertionError("non-finite load")
+        est = p.estimate_collective_bytes(
+            k_local=p._last_k_local, demand_format=p._last_demand_format)
+        if p.measured_collective_bytes() != est["per_tick"]:
+            raise AssertionError(f"{name}: collective bytes "
+                                 f"{p.measured_collective_bytes()} != "
+                                 f"estimate {est['per_tick']}")
+        ticks = [pl for win in plans for pl in win]
+        counts_by[name] = counts
+        out["meshes"].append({
+            "mesh": name, "shards": int(p.mesh.devices.size),
+            "k_local": p._last_k_local,
+            "demand_format": p._last_demand_format,
+            "setup_s": setup_s, "ms_per_tick": ms,
+            "p50_ms_per_tick": float(np.percentile(ms, 50)),
+            "p99_ms_per_tick": float(np.percentile(ms, 99)),
+            "fired_per_tick": float(np.mean([pl.total_fired for pl in ticks])),
+            "placed_per_tick": float(np.mean(
+                [(pl.assigned >= 0).sum() for pl in ticks])),
+            "launches": counts,
+            "launches_per_planned_second": {
+                n: c / (n_windows * W) for n, c in counts.items()},
+            "collective_bytes_per_tick": p.measured_collective_bytes(),
+            "estimated_bytes_per_tick": est["per_tick"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        if profile:
+            profile_windows(p, W, SLA, n=2, name=f"mesh_{name}",
+                            plan=lambda ep: p.plan_window(ep, W))
+        del p, plans, ticks
+        torch.cuda.empty_cache()
+    out["nvidia_smi"] = nvidia_smi_line()
+    emit(out)
+    return counts_by
+
+
+def phase_mesh_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES,
+                        W=SERVICE_WINDOW, windows=MESH_LAUNCHER_WINDOWS):
+    """The service deployment served by the port's in-script
+    ``StoreServer`` to a 2-process mesh of ``cronsun_tpu_torch.bin.sched``
+    on the card: ``--mesh 2 --mesh-hosts 2 --mesh-proc-id 0|1`` (gloo
+    rendezvous on a free local port), one shard a process.  Each rank's
+    seconds to ``READY``; over ``windows`` leader windows the played agents
+    (the launcher phase's rules) see every due (job, second) run once.
+    SIGTERM to rank 0: it exits 0 and logs K1 and K2 launched; the worker
+    is released, exits 0 and logs its plan steps.  Returns rank 0's launch
+    counts."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.store import MemStore, RemoteStore, StoreServer
+    from cronsun_tpu_torch.synth import seed_service_store
+    ks = Keyspace()
+    tmp = tempfile.mkdtemp(prefix="cronsun-mesh-launcher-")
+    out = {"phase": "mesh_launcher", "jobs": n_jobs, "nodes": n_nodes,
+           "window_s": W, "windows_checked": windows, "mesh": 2, "hosts": 2}
+    procs, server, client, agents = {}, None, None, None
+    try:
+        t = time.perf_counter()
+        store = MemStore()
+        seed_service_store(store, ks, n_jobs, n_nodes, int(time.time()))
+        fleet = ServiceFleet(store, ks)
+        server = StoreServer(store).start()
+        addr = f"{server.host}:{server.port}"
+        client = RemoteStore(server.host, server.port)
+        agents = WatchedAgents(fleet, client)
+        out["seed_s"] = time.perf_counter() - t
+        conf = os.path.join(tmp, "conf.json")
+        with open(conf, "w") as f:
+            json.dump({"window_s": W, "job_capacity": n_jobs,
+                       "node_capacity": n_nodes,
+                       "log_db": os.path.join(tmp, "unused.db")}, f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        mesh = ("--mesh", "2", "--mesh-hosts", "2", "--mesh-coordinator",
+                coord)
+        procs["mesh-leader"] = SchedProc(addr, conf, "mesh-leader", *mesh,
+                                         "--mesh-proc-id", "0")
+        procs["mesh-worker"] = SchedProc(addr, conf, "mesh-worker", *mesh,
+                                         "--mesh-proc-id", "1")
+
+        def pump(cond, timeout, what):
+            deadline = time.perf_counter() + timeout
+            while True:
+                agents.process()
+                if cond():
+                    return
+                for p in procs.values():
+                    p.check_alive()
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"mesh launcher: {what} not within "
+                                         f"{timeout} s")
+                time.sleep(0.05)
+
+        def hwm():
+            kv = client.get(ks.hwm)
+            return int(kv.value) if kv is not None else 0
+
+        pump(lambda: all(p.ready_s is not None for p in procs.values()), 300,
+             "both ranks READY")
+        out["ready_s"] = {k: p.ready_s for k, p in procs.items()}
+        pump(lambda: agents.min_ep is not None
+             and hwm() >= agents.min_ep + windows * W, 120 + 4 * windows * W,
+             f"{windows} leader windows")
+        lo, hi = agents.min_ep, hwm()
+        t = time.perf_counter()
+        pump(lambda: time.perf_counter() > t + 1.0, 10, "in-flight orders")
+        out.update(checked_seconds=[lo, hi],
+                   due_fires=_check_due(fleet, lo, hi, "mesh launcher"),
+                   redeliveries=len(agents.redelivered), orders=len(agents.seen),
+                   **fleet.n)
+        if agents.redelivered:
+            raise AssertionError(f"re-deliveries with one leader: "
+                                 f"{agents.redelivered[:3]}")
+        kv = client.get(ks.metrics_key("sched", "mesh-leader"))
+        snap = json.loads(kv.value) if kv is not None else {}
+        kv = client.get(ks.metrics_key("mesh", "mesh-leader"))
+        mesh_snap = json.loads(kv.value) if kv is not None else {}
+        out.update(step_p50_ms=snap.get("sched_step_p50_ms"),
+                   step_p99_ms=snap.get("sched_step_p99_ms"),
+                   tick_p50_ms=snap.get("tick_p50_ms"),
+                   tick_p99_ms=snap.get("tick_p99_ms"),
+                   mesh_snapshot=mesh_snap)
+
+        # SIGTERM rank 0: it releases the worker on its way out
+        leader, worker = procs["mesh-leader"], procs["mesh-worker"]
+        rc = leader.stop(signal.SIGTERM)
+        if rc != 0:
+            raise AssertionError(f"the mesh leader exited {rc} on SIGTERM:\n"
+                                 f"{''.join(leader.lines[-40:])}")
+        rc = worker.stop(signal.SIGTERM)   # its first SIGTERM is ignored
+        released = [ln for ln in worker.lines if "released after" in ln]
+        if rc != 0 or not released:
+            raise AssertionError(f"the mesh worker exited {rc}, released: "
+                                 f"{released}:\n{''.join(worker.lines[-40:])}")
+        steps = int(released[-1].split("released after ")[1].split()[0])
+        line = [ln for ln in leader.lines if "kernel launch counts:" in ln]
+        if not line:
+            raise AssertionError("the mesh leader logged no launch counts")
+        counts = json.loads(line[-1].split("kernel launch counts:", 1)[1])
+        if not all(counts.get(n) for n in SINGLE_DEVICE_KERNELS):
+            raise AssertionError(f"a kernel never launched in the mesh "
+                                 f"leader: {counts}")
+        out.update(worker_plan_steps=steps, launches_mesh_launcher=counts,
+                   nvidia_smi=nvidia_smi_line())
     finally:
         for p in procs.values():
             p.stop(signal.SIGKILL, timeout=30)
@@ -1693,11 +2082,19 @@ def main(argv=None) -> int:
     phase_next_fire(dev)
     service = phase_service(dev)
     launcher = phase_launcher()
+    phase_mesh_equivalence(dev)
+    mesh = phase_mesh_headline(dev, profile=args.profile)
+    mesh_launcher = phase_mesh_launcher()
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
         r["launches_service"] = service[r["name"]]
-        r["launches_launcher"] = launcher[r["name"]]
+        r["launches_launcher"] = launcher.get(r["name"], 0)
+        r["launches_mesh"] = {m: c[r["name"]] for m, c in mesh.items()}
+        r["launches_mesh_launcher"] = mesh_launcher.get(r["name"], 0)
+        if r["name"] == "bid_argmin_natural":
+            # K1n's path is the 2-D mesh: its launches are that run's
+            r["launches"] = mesh["2d_2x2"][r["name"]]
         r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
                      for t in path if t["name"] == r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [

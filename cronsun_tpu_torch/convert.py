@@ -21,6 +21,11 @@ both planners alike.
 uint32 arrays enter the port as ``arr.view(np.int32)`` bit patterns and
 leave it viewed back as uint32, so a state round-trips bit for bit.  The
 planner copies every array; it never aliases the caller's memory.
+
+A mesh planner's state is the global arrays its shards hold, as the JAX
+mesh planner's ``_fetch`` returns them: the table columns, ``elig``,
+``exclusive``, ``cost``, ``load`` and ``rem_cap`` (:data:`MESH_FIELDS`);
+:func:`install_mesh_state` puts it into a port mesh planner.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ PLANNER_FIELDS = dict(
 
 # host-side state: the row->tenant snapshot and the arms' switches
 HOST_FIELDS = ("row_tenant", "dep_enabled", "tenants_enabled")
+
+# a mesh planner's arrays beside the table (it has no arms)
+MESH_FIELDS = ("elig", "exclusive", "cost", "load", "rem_cap")
 
 
 def planner_from_numpy(state: dict, *, device: DeviceLike = None,
@@ -79,3 +87,17 @@ def planner_to_numpy(planner: TickPlanner) -> dict:
     out["dep_enabled"] = np.bool_(planner.dep_enabled)
     out["tenants_enabled"] = np.bool_(planner.tenants_enabled)
     return out
+
+
+def install_mesh_state(planner, state: dict) -> None:
+    """Install ``state`` (the table columns and :data:`MESH_FIELDS`, the
+    global arrays of a JAX mesh planner as numpy) in ``planner``, a port
+    mesh planner of the same J and N; each shard takes its part."""
+    missing = (set(DTYPES) | set(MESH_FIELDS)) - set(state)
+    if missing:
+        raise ValueError(f"missing state arrays: {sorted(missing)}")
+    planner.set_table(table_from_numpy({k: state[k] for k in DTYPES}, "cpu"))
+    planner.set_eligibility(state["elig"])
+    planner.set_job_meta_full(state["exclusive"], state["cost"])
+    planner.load = state["load"]
+    planner.rem_cap = state["rem_cap"]

@@ -62,6 +62,22 @@
 // Tensor cores do not apply: K1 computes no product.
 // Each lane keeps a lexicographic (score, b*W32 + w) minimum; five xor
 // shuffles reduce it across the warp.  No atomics.
+//
+// K1n (cronsun_bid_argmin_natural) is the same kernel in natural tie order
+// with a column offset: the reference computes it in jnp, not in Pallas
+// (`bid_block_jnp(packed, load_blk, col0, bitplane_ties=False)`,
+// cronsun_tpu/ops/assign.py:55-83), once per node block of the 2-D mesh
+// (cronsun_tpu/parallel/mesh.py:315-324).  The block holds the global nodes
+// col0 .. col0 + 32*W32 - 1, so
+//   best[j]   = min over set bits n of  load_eff[n] + tie(j, col0 + n)
+//   choice[j] = col0 + n, exact ties to the lowest n — the lowest global
+//               node id, so placements do not depend on how the 2-D mesh
+//               splits its columns; col0 when there is no candidate (or the
+//               row is inactive).
+// Only the key changes: the hash takes col0 + n and the lexicographic key
+// is (score, n = w*32 + b).  Score and key travel together through the
+// lanes' minimum and the shuffles; the load planes, the pruning (which
+// keeps every bit with l == best) and the ring are K1's unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +105,7 @@ struct Params {
   float* best;
   int32_t* choice;
   int J, K, W32;            // table rows, bucket rows, words per row
+  int col0;                 // K1n: global id of the block's node 0
   int tile;                 // words per node tile
   int tile_p;               // its padded width (plane stride), % 32 == 0
   int n_tiles;
@@ -172,17 +189,22 @@ __device__ __forceinline__ bool lex_less(float s, uint32_t p, float bs,
   return s < bs || (s == bs && p < bp);
 }
 
-// Row state of one lane: its running lexicographic minimum.
+// Row state of one lane: its running lexicographic minimum.  K1 keys ties
+// by (b, w): b*W32 + w; K1n (kNatural) by the node n = w*32 + b and hashes
+// col0 + n.
+template <bool kNatural>
 struct Lane {
   float best;
   uint32_t prio;
   uint32_t ja;
   uint32_t w32;
+  uint32_t col0;
 
   // set bit b of word w with load l (+inf: not a candidate); no branch
   __device__ __forceinline__ void consider(float l, uint32_t b, uint32_t w) {
-    const float s = __fadd_rn(l, tie(ja, w * 32u + b));
-    const uint32_t p = b * w32 + w;
+    const uint32_t n = w * 32u + b;
+    const float s = __fadd_rn(l, tie(ja, kNatural ? col0 + n : n));
+    const uint32_t p = kNatural ? n : b * w32 + w;
     const bool take = s < __int_as_float(0x7f800000) &&
                       lex_less(s, p, best, prio);
     best = take ? s : best;
@@ -190,7 +212,7 @@ struct Lane {
   }
 };
 
-template <bool kBulk>
+template <bool kBulk, bool kNatural>
 __global__ void __launch_bounds__(kThreads)
 bid_argmin_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -242,7 +264,7 @@ bid_argmin_kernel(const Params p) {
       lane_src = act ? src_r : 0;
       if (first && in && !act) {
         p.best[r] = inf;
-        p.choice[r] = 0;
+        p.choice[r] = kNatural ? p.col0 : 0;
       }
       pending = __ballot_sync(kFull, act);
     };
@@ -337,9 +359,10 @@ bid_argmin_kernel(const Params p) {
       } else {
         words = p.table + src * w32 + w0;
       }
-      Lane st;
+      Lane<kNatural> st;
       st.ja = static_cast<uint32_t>(j) * kHashA;
       st.w32 = w32;
+      st.col0 = static_cast<uint32_t>(p.col0);
       if (first) {
         st.best = inf;
         st.prio = kNone;
@@ -401,6 +424,10 @@ bid_argmin_kernel(const Params p) {
         p.best[j] = st.best;
         if (!last) {
           p.choice[j] = static_cast<int32_t>(st.prio);   // carried priority
+        } else if (kNatural) {
+          p.choice[j] = p.col0 + (st.prio == kNone
+                                      ? 0
+                                      : static_cast<int32_t>(st.prio));
         } else {
           p.choice[j] = st.prio == kNone
               ? 0
@@ -415,9 +442,9 @@ bid_argmin_kernel(const Params p) {
   }
 }
 
-template <bool kBulk>
+template <bool kBulk, bool kNatural>
 int launch(const Params& p, size_t smem, cudaStream_t st) {
-  auto kern = bid_argmin_kernel<kBulk>;
+  auto kern = bid_argmin_kernel<kBulk, kNatural>;
   struct Cfg {
     size_t smem;
     int blocks_per_sm;
@@ -449,14 +476,10 @@ int launch(const Params& p, size_t smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Launch on `stream`; `rows` and `active` may be null, J is the table's
-// row count.  Returns a CUDA error code (0 on success).
-extern "C" int cronsun_bid_argmin(const void* table, const void* rows,
-                                  const void* active, const void* load_eff,
-                                  void* best, void* choice, int J, int K,
-                                  int W32, void* stream) {
+template <bool kNatural>
+int launch_entry(const void* table, const void* rows, const void* active,
+                 const void* load_eff, void* best, void* choice, int J, int K,
+                 int W32, int col0, void* stream) {
   Params p;
   p.table = static_cast<const uint32_t*>(table);
   p.rows = static_cast<const int32_t*>(rows);
@@ -467,6 +490,7 @@ extern "C" int cronsun_bid_argmin(const void* table, const void* rows,
   p.J = J;
   p.K = K;
   p.W32 = W32;
+  p.col0 = col0;
   const int w32p = (W32 + 31) / 32 * 32;
   if (w32p <= kMaxWholeWords) {
     p.tile = W32;
@@ -482,5 +506,29 @@ extern "C" int cronsun_bid_argmin(const void* table, const void* rows,
                     reinterpret_cast<uintptr_t>(table) % 16 == 0;
   const size_t smem = smem_bytes(p.tile_p, bulk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bulk ? launch<true>(p, smem, st) : launch<false>(p, smem, st);
+  return bulk ? launch<true, kNatural>(p, smem, st)
+              : launch<false, kNatural>(p, smem, st);
+}
+
+}  // namespace
+
+// K1: launch on `stream`; `rows` and `active` may be null, J is the table's
+// row count.  Returns a CUDA error code (0 on success).
+extern "C" int cronsun_bid_argmin(const void* table, const void* rows,
+                                  const void* active, const void* load_eff,
+                                  void* best, void* choice, int J, int K,
+                                  int W32, void* stream) {
+  return launch_entry<false>(table, rows, active, load_eff, best, choice, J,
+                             K, W32, 0, stream);
+}
+
+// K1n: K1 in natural tie order over the node block starting at global node
+// col0 (see the head of this file).  Same arguments as K1, plus col0.
+extern "C" int cronsun_bid_argmin_natural(const void* table, const void* rows,
+                                          const void* active,
+                                          const void* load_eff, void* best,
+                                          void* choice, int J, int K, int W32,
+                                          int col0, void* stream) {
+  return launch_entry<true>(table, rows, active, load_eff, best, choice, J, K,
+                            W32, col0, stream);
 }

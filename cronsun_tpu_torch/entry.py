@@ -6,8 +6,10 @@ synthetic schedule table as the JAX package's entry (J 4096, N 320,
 K 1024, rounds 3).  On the card the step's fan-out and bids run through
 the hand-written kernels (K2 ``fanout_add``, K1 ``bid_argmin``), which
 gather the bucket's rows themselves; on the CPU the same wrappers run
-their plain versions.  The multi-device dry run waits for the port of
-the mesh planners.
+their plain versions.
+
+:func:`dryrun_multichip` runs one fused window and one tick of the mesh
+planners (``__graft_entry__.dryrun_multichip``'s counterpart).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .ops.assign import _assign_excl, _fanout_load
 from .ops.planner import _compact
 from .ops.schedule_table import table_from_numpy
 from .ops.tick import _fire_mask
+from .parallel.mesh import Mesh, Sharded2DTickPlanner, ShardedTickPlanner
 
 J, N, K, ROUNDS = 4096, 320, 1024, 3
 # (sec, min, hour, dom, month, dow, t_rel) of the one planned second
@@ -94,3 +97,63 @@ def entry(device: DeviceLike = None):
         torch.zeros(N, dtype=torch.float32, device=dev),
         torch.full((N,), 64, dtype=torch.int32, device=dev))
     return tick_step, example_args
+
+
+def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> str:
+    """One fused window (W = 4) and one tick on a 1-D mesh of ``n_devices``
+    shards and, for an even ``n_devices`` >= 4, the window on an
+    (n/2) x 2 mesh, which must fire the same rows; returns (and prints)
+    a summary line.
+
+    On the card the shards share the cards there are (all ``n_devices``
+    on ``cuda:0`` with one card), as the reference provisions a virtual
+    n-device mesh on a one-chip host; with ``device="cpu"`` every shard is
+    on the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i % torch.cuda.device_count())
+                for i in range(n_devices)]
+    else:
+        devs = [dev] * n_devices
+    J, N, W, T = n_devices * 512, 96, 4, 1_753_000_000
+    sp = ShardedTickPlanner(Mesh(devs), job_capacity=J, node_capacity=N,
+                            max_fire_bucket=n_devices * 256)
+    cols, elig, excl, cost = synth_state(sp.J, sp.N, seed=1)
+    sp.set_table(table_from_numpy(cols, "cpu"))
+    sp.set_eligibility(elig)
+    sp.set_job_meta_full(excl, cost)
+    sp.set_node_capacity_full(np.full(sp.N, 32, np.int32))
+    plans = sp.plan_window(T, W)
+    plan_t = sp.plan(T + W)
+    if len(plans) != W or plans[0].fired.ndim != 1 \
+            or not torch.isfinite(sp.load).all():
+        raise AssertionError("dryrun_multichip: malformed 1-D mesh plan")
+    msg2 = ""
+    if n_devices >= 4 and n_devices % 2 == 0:
+        # 2-D (jobs x nodes) mesh: the eligibility matrix shards both ways
+        dj = n_devices // 2
+        sp2 = Sharded2DTickPlanner(
+            Mesh(np.array(devs, dtype=object).reshape(dj, 2)),
+            job_capacity=J, node_capacity=N, max_fire_bucket=n_devices * 256)
+        sp2.set_table(table_from_numpy(cols, "cpu"))
+        elig2 = np.zeros((sp2.J, sp2.N // 32), np.uint32)
+        elig2[:, :sp.N // 32] = elig
+        sp2.set_eligibility(elig2)
+        sp2.set_job_meta_full(excl, cost)
+        caps2 = np.zeros(sp2.N, np.int32)
+        caps2[:sp.N] = 32
+        sp2.set_node_capacity_full(caps2)
+        plans2 = sp2.plan_window(T, W)
+        for p1, p2 in zip(plans, plans2):
+            if set(p2.fired.tolist()) != set(p1.fired.tolist()):
+                raise AssertionError(
+                    f"1-D and 2-D meshes disagree on the fired set "
+                    f"@{p1.epoch_s}")
+        msg2 = (f", 2d-mesh({dj}x2) fused-window "
+                f"fired={sum(len(p.fired) for p in plans2)}")
+    msg = (f"dryrun_multichip OK: {n_devices} devices on {dev.type}, fused "
+           f"W={W} window fired={sum(len(p.fired) for p in plans)} "
+           f"(+{len(plan_t.fired)} single-tick), "
+           f"overflow={plans[0].overflow}{msg2}")
+    print(msg)
+    return msg

@@ -11,7 +11,9 @@ the bit-packed eligibility ``packed`` [K, W32] as int32 bit patterns (node
   kernel is held against on the card.
 
 K1 :func:`bid_argmin` — per job, min/argmin of ``load_eff + tie`` over its
-eligible nodes.  K2 :func:`fanout_add` — per node, the summed weight of the
+eligible nodes.  K1n :func:`bid_argmin_natural` — the same over a node block
+starting at global node ``col0``, in natural tie order (the 2-D mesh's
+per-block bid).  K2 :func:`fanout_add` — per node, the summed weight of the
 jobs eligible there.
 
 Both take an optional ``rows`` [K] int32: row j of the bucket is then
@@ -66,7 +68,7 @@ def unpack_tile(packed: torch.Tensor, n_nodes: int) -> torch.Tensor:
 
 
 def bid_block_plain(packed: torch.Tensor, load_blk: torch.Tensor,
-                    col0: int = 0, bitplane_ties: bool = True):
+                    col0: int = 0, bitplane_ties: bool = True, pos=None):
     """Dense plain bid over a node-column block (``cronsun_tpu``'s
     ``bid_block_jnp``), materialized ``_PLAIN_TILE`` elements at a time.
 
@@ -74,7 +76,9 @@ def bid_block_plain(packed: torch.Tensor, load_blk: torch.Tensor,
     coordinates.  Exact-score ties resolve per ``bitplane_ties``: True is the
     kernels' order (bit plane b outer, word w inner: lexicographic
     (score, b, w)), False the natural column order.  ``torch.argmin`` returns
-    the first minimum, so an all-inf row gives choice ``col0``."""
+    the first minimum, so an all-inf row gives choice ``col0``.  ``pos``
+    [K], when given, is each row's place in the bucket, which the tie hash
+    takes (default: the row's own index)."""
     K, w32 = packed.shape
     n = w32 * 32
     dev = packed.device
@@ -85,7 +89,8 @@ def bid_block_plain(packed: torch.Tensor, load_blk: torch.Tensor,
     for r0 in range(0, K, step):
         rows = packed[r0:r0 + step]
         k = rows.shape[0]
-        jix = torch.arange(r0, r0 + k, dtype=torch.int64, device=dev)[:, None]
+        jix = (torch.arange(r0, r0 + k, dtype=torch.int64, device=dev)
+               if pos is None else pos[r0:r0 + k].to(torch.int64))[:, None]
         score = torch.where(unpack_tile(rows, n),
                             load_blk[None, :] + _tie(jix, nix),
                             torch.tensor(float("inf"), device=dev))
@@ -105,19 +110,42 @@ def _take_rows(packed: torch.Tensor, rows) -> torch.Tensor:
     return packed if rows is None else packed[rows.to(torch.int64)]
 
 
+def _bid_plain(packed, load, col0, bitplane_ties, rows, active):
+    """The plain bid of the bucket's rows (``packed[rows[j]]``, or
+    ``packed[j]``), computed for the active ones only; an inactive row gives
+    (+inf, col0)."""
+    if active is None:
+        return bid_block_plain(_take_rows(packed, rows), load, col0,
+                               bitplane_ties)
+    best = torch.full(active.shape, float("inf"), device=packed.device)
+    choice = torch.full(active.shape, col0, dtype=torch.int32,
+                        device=packed.device)
+    sel = torch.nonzero(active).flatten()
+    src = sel if rows is None else rows[sel].to(torch.int64)
+    best[sel], choice[sel] = bid_block_plain(packed[src], load, col0,
+                                             bitplane_ties, pos=sel)
+    return best, choice
+
+
 def bid_argmin_plain(packed: torch.Tensor, load_eff: torch.Tensor,
                      rows=None, active=None):
     """Plain K1: (best [K] f32, choice [K] int32) in the kernels' tie order.
 
     Row ``j`` is ``packed[rows[j]]`` when ``rows`` is given; its tie hash
     still uses ``j``, the row's place in the bucket.  A row that ``active``
-    marks False gives (+inf, 0)."""
-    best, choice = bid_block_plain(_take_rows(packed, rows), load_eff,
-                                   col0=0, bitplane_ties=True)
-    if active is not None:
-        best = torch.where(active, best, float("inf"))
-        choice = torch.where(active, choice, 0)
-    return best, choice
+    marks False gives (+inf, 0) and costs nothing."""
+    return _bid_plain(packed, load_eff, 0, True, rows, active)
+
+
+def bid_argmin_natural_plain(packed: torch.Tensor, load_blk: torch.Tensor,
+                             col0: int, rows=None, active=None):
+    """Plain K1n: (best [K] f32, choice [K] int32) over the node block whose
+    node 0 is global node ``col0``, hashing and returning global ids, ties
+    to the lowest id (``bid_block_plain(..., col0, bitplane_ties=False)``).
+    Row ``j`` is ``packed[rows[j]]`` when ``rows`` is given; its tie hash
+    uses ``j``.  A row with no candidate, or that ``active`` marks False,
+    gives (+inf, col0)."""
+    return _bid_plain(packed, load_blk, col0, False, rows, active)
 
 
 def fanout_add_plain(packed: torch.Tensor, weights: torch.Tensor,
@@ -182,12 +210,12 @@ def _ptr(t) -> int:
 _fns: dict = {}
 
 
-def _launch(name: str, argtypes, dev: torch.device, *args) -> None:
-    """Call the C entry ``cronsun_<name>`` (built on first use) on ``dev``'s
-    current stream; raise if it reports a CUDA error."""
+def _launch(lib: str, name: str, argtypes, dev: torch.device, *args) -> None:
+    """Call the C entry ``cronsun_<name>`` of library ``lib`` (built on first
+    use) on ``dev``'s current stream; raise if it reports a CUDA error."""
     fn = _fns.get(name)
     if fn is None:
-        fn = _fns[name] = _build.kernel_function(name, f"cronsun_{name}",
+        fn = _fns[name] = _build.kernel_function(lib, f"cronsun_{name}",
                                                  argtypes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dev.index == torch.cuda.current_device():
@@ -230,14 +258,58 @@ def bid_argmin(packed: torch.Tensor, load_eff: torch.Tensor,
     choice = torch.empty(K, dtype=torch.int32, device=dev)
     if K == 0 or w32 == 0:
         return best.fill_(float("inf")), choice.zero_()
-    _launch("bid_argmin", _K1_ARGS, dev, packed.data_ptr(), _ptr(rows),
-            _ptr(active), load_eff.data_ptr(), best.data_ptr(),
+    _launch("bid_argmin", "bid_argmin", _K1_ARGS, dev, packed.data_ptr(),
+            _ptr(rows), _ptr(active), load_eff.data_ptr(), best.data_ptr(),
             choice.data_ptr(), J, K, w32)
     bid_argmin.launches += 1
     return best, choice
 
 
 bid_argmin.launches = 0
+
+_K1N_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def bid_argmin_natural(packed: torch.Tensor, load_blk: torch.Tensor,
+                       col0: int, rows=None, active=None):
+    """Per-job best node of a node block, in natural tie order (K1n).
+
+    The block holds global nodes ``col0 .. col0 + 32*W32 - 1``: the tie hash
+    takes the global id, exact ties go to the lowest one, so placements do
+    not depend on how a 2-D mesh splits its columns.
+
+    Args:
+      packed: [J, W32] int32 eligibility bit patterns of the block's
+        columns — the bucket's tile, or with ``rows`` the whole table.
+      load_blk: [W32*32] f32 effective load of the block's nodes.
+      col0: the block's first global node id, >= 0.
+      rows, active: as :func:`bid_argmin`.
+    Returns:
+      (best [K] f32, choice [K] int32 — a global node id, ``col0`` when the
+       row has no eligible open node or is inactive).
+    """
+    J, w32 = _check_packed("bid_argmin_natural", packed)
+    _check_vector("bid_argmin_natural", packed, load_blk, 32 * w32)
+    K = _bucket_size("bid_argmin_natural", packed, rows)
+    _check_vector("bid_argmin_natural", packed, active, K, torch.bool, "bool")
+    col0 = int(col0)
+    if not 0 <= col0 <= 2**31 - 1 - 32 * w32:
+        raise ValueError(f"bid_argmin_natural: col0 {col0} out of range")
+    if packed.device.type == "cpu":
+        return bid_argmin_natural_plain(packed, load_blk, col0, rows, active)
+    dev = packed.device
+    best = torch.empty(K, dtype=torch.float32, device=dev)
+    choice = torch.empty(K, dtype=torch.int32, device=dev)
+    if K == 0 or w32 == 0:
+        return best.fill_(float("inf")), choice.fill_(col0)
+    _launch("bid_argmin", "bid_argmin_natural", _K1N_ARGS, dev,
+            packed.data_ptr(), _ptr(rows), _ptr(active), load_blk.data_ptr(),
+            best.data_ptr(), choice.data_ptr(), J, K, w32, col0)
+    bid_argmin_natural.launches += 1
+    return best, choice
+
+
+bid_argmin_natural.launches = 0
 
 _K2_TILE_WORDS = 32  # word columns per block, one per lane (csrc/fanout_add.cu)
 _K2_BLOCKS = 128     # blocks aimed for (one per SM); a constant, so the
@@ -292,16 +364,16 @@ def fanout_add(packed: torch.Tensor, weights: torch.Tensor,
     s, chunk = fanout_chunks(K, w32)
     partial = torch.empty((s, w32 * 32), dtype=torch.float32, device=dev)
     counters = _zeroed_counters(dev, math.ceil(w32 / _K2_TILE_WORDS))
-    _launch("fanout_add", _K2_ARGS, dev, packed.data_ptr(), _ptr(rows),
-            weights.data_ptr(), partial.data_ptr(), counters.data_ptr(),
-            out.data_ptr(), J, K, w32, s, chunk)
+    _launch("fanout_add", "fanout_add", _K2_ARGS, dev, packed.data_ptr(),
+            _ptr(rows), weights.data_ptr(), partial.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), J, K, w32, s, chunk)
     fanout_add.launches += 1
     return out
 
 
 fanout_add.launches = 0
 
-WRAPPERS = (bid_argmin, fanout_add)
+WRAPPERS = (bid_argmin, bid_argmin_natural, fanout_add)
 
 
 def reset_launch_counts() -> None:

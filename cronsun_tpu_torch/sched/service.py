@@ -26,12 +26,12 @@ differs from it only at the seams the JAX package's own types sit on:
 
 - the planner is the port's :class:`~cronsun_tpu_torch.ops.planner.
   TickPlanner`, built on ``device`` (the card unless the caller passes
-  ``device="cpu"``); there are no mesh planners yet, so a planner of
-  another class runs without checkpoints, loudly;
+  ``device="cpu"``), or a mesh planner of :mod:`..parallel.mesh` passed in;
 - checkpoints capture and install the built state through the planner
   (``built_state`` / ``set_built_state``, under its lock), in the JAX
   package's file format and dtypes, so either scheduler restores the
-  other's;
+  other's — a mesh planner's too, tagged with its topology as the JAX
+  package tags it;
 - the store's ``WatchLost`` and ``CompactedError`` are recognized by class
   name as well as by class, so a store of the JAX package (whose classes
   this package does not import) resyncs and cold-loads exactly as one of
@@ -434,15 +434,22 @@ class SchedulerService:
         # checkpoint plane: periodic/operator-triggered saves of the
         # BUILT state (see checkpoint_save), restored at construction
         # when a checkpoint is present — the warm-takeover path.
-        # Refused HERE (not just in the launcher) for any planner but
-        # the plain TickPlanner (the port has no mesh planners yet):
-        # their restore would install arrays with invariants this code
-        # cannot vouch for.
+        # Single-process MESH planners checkpoint too: their shards
+        # assemble on the host through built_state into the same
+        # sched_ckpt format, tagged with the mesh topology (a
+        # topology-mismatched restore cold-loads loudly).  Refused HERE
+        # (not just in the launcher): proxied multi-host planners
+        # (PlannerSyncProxy and its workers' op-log replay) and unknown
+        # planner classes, whose restore would install arrays with
+        # invariants this code cannot vouch for.
         if checkpoint_dir and type(self.planner) is not TickPlanner:
-            log.warnf("checkpoint_dir is not supported with %s "
-                      "planners yet; disabling scheduler checkpoints",
-                      type(self.planner).__name__)
-            checkpoint_dir = None
+            from ..parallel.mesh import _ShardedPlannerBase
+            if not (isinstance(self.planner, _ShardedPlannerBase)
+                    and not self.planner._multiprocess):
+                log.warnf("checkpoint_dir is not supported with %s "
+                          "planners yet; disabling scheduler checkpoints",
+                          type(self.planner).__name__)
+                checkpoint_dir = None
         # sharded stores checkpoint too: the quiescent barrier runs the
         # PR 5 double watch-barrier PER SHARD (one barrier nonce key
         # mined to route to each shard) and the checkpoint is keyed on
@@ -2334,10 +2341,17 @@ class SchedulerService:
     def _mesh_topology(self) -> Optional[dict]:
         """Mesh-planner topology tag for checkpoints: a checkpoint of
         device shards is only restorable onto the SAME mesh shape — a
-        mismatch cold-loads loudly.  The port has only the plain planner,
-        whose tag is None, so a JAX mesh scheduler's checkpoint (tagged)
-        cold-loads here."""
-        return None
+        mismatch cold-loads loudly.  None for the plain planner, so
+        pre-mesh checkpoints (no "mesh" field) keep restoring.  The tag
+        is the JAX package's (the planner's class name, its jobs and
+        nodes axes and its shard count), so a mesh checkpoint of one
+        shape restores in either package."""
+        if getattr(self.planner, "mesh", None) is None:
+            return None
+        return {"kind": type(self.planner).__name__,
+                "dj": int(getattr(self.planner, "Dj", 1)),
+                "dn": int(getattr(self.planner, "Dn", 1)),
+                "devices": int(self.planner.mesh.devices.size)}
 
     def _checkpoint_state(self, rev: int) -> dict:
         """Capture the BUILT state as a STABLE copy: every mutable host

@@ -180,9 +180,11 @@ def test_wrappers_count_kernel_launches(cuda):
     k.reset_launch_counts()
     packed, load = _tile(cuda, 64, 2, 0)
     k.bid_argmin(packed, load)
+    k.bid_argmin_natural(packed, load, 32)
     k.fanout_add(packed, torch.ones(64, device=cuda))
     k.fanout_add(packed, torch.ones(64, device=cuda))
-    assert k.launch_counts() == {"bid_argmin": 1, "fanout_add": 2}
+    assert k.launch_counts() == {"bid_argmin": 1, "bid_argmin_natural": 1,
+                                 "fanout_add": 2}
     with pytest.raises(ValueError):
         k.bid_argmin(packed[:, :1], load[:32].clone())   # not contiguous
 
@@ -288,7 +290,7 @@ def test_service_on_the_card_matches_the_cpu(cuda):
                            for kv in store.get_prefix(ks.dispatch)),
                     store.get(ks.hwm).value, k.launch_counts()))
     assert out[0][0] and out[0][:2] == out[1][:2]
-    assert all(out[0][2].values())
+    assert out[0][2]["bid_argmin"] and out[0][2]["fanout_add"]
 
 
 def test_planner_writes_land_whole_on_the_card(cuda):
@@ -300,7 +302,8 @@ def test_entry_on_the_card_matches_the_cpu(cuda):
     k.reset_launch_counts()
     fn, args = entry.entry()
     got = [t.cpu() for t in fn(*args)]
-    assert all(k.launch_counts().values())
+    counts = k.launch_counts()
+    assert counts["bid_argmin"] and counts["fanout_add"]
     fn, args = entry.entry(device="cpu")
     for g, w in zip(got, fn(*args)):
         assert torch.equal(g, w)
@@ -355,3 +358,48 @@ def test_launcher_on_the_card_publishes_and_exits_clean(cuda, tmp_path):
             p.kill()
             p.wait()
         server.stop()
+
+
+@pytest.mark.parametrize("K,w32,col0", [(1, 1, 0), (33, 5, 32), (1000, 160, 5120),
+                                        (300, 400, 96)])
+def test_k1n_kernel_matches_plain(cuda, K, w32, col0):
+    packed, load = _tile(cuda, K, w32, K + w32 + col0)
+    for ld in (load, torch.zeros_like(load)):          # ties decide too
+        best, choice = k.bid_argmin_natural(packed, ld, col0)
+        best_p, choice_p = k.bid_argmin_natural_plain(packed, ld, col0)
+        assert torch.equal(choice, choice_p) and torch.equal(best, best_p)
+    rows = torch.randint(0, K, (2 * K,), dtype=torch.int32, device=cuda)
+    active = torch.rand(2 * K, device=cuda) < 0.5
+    got = k.bid_argmin_natural(packed, load, col0, rows=rows, active=active)
+    ref = k.bid_argmin_natural_plain(packed, load, col0, rows, active)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_mesh_planner_on_the_card_matches_the_cpu(cuda, kind):
+    """Mesh planners with their shards sharing the card against the same
+    planners on the CPU: every plan field, load and rem_cap identical."""
+    from cronsun_tpu_torch.convert import install_mesh_state
+    from cronsun_tpu_torch.parallel import mesh as pm
+    state = synth_state(16384, 512, seed=5, node_cap=3)
+    shape = (2,) if kind == "1d" else (2, 2)
+    cls = pm.ShardedTickPlanner if kind == "1d" else pm.Sharded2DTickPlanner
+    planners = []
+    for d in (cuda, torch.device("cpu")):
+        grid = np.array([d] * int(np.prod(shape)), dtype=object).reshape(shape)
+        p = cls(pm.Mesh(grid), 16384, 512, max_fire_bucket=4096)
+        install_mesh_state(p, state)
+        planners.append(p)
+    k.reset_launch_counts()
+    got = planners[0].plan_window(T0, 4) + [planners[0].plan(T0 + 4)]
+    ref = planners[1].plan_window(T0, 4) + [planners[1].plan(T0 + 4)]
+    for a, b in zip(ref, got):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert (np.array_equal(x, y) if isinstance(x, np.ndarray)
+                    else x == y), f.name
+    assert torch.equal(planners[0].load.cpu(), planners[1].load)
+    assert torch.equal(planners[0].rem_cap.cpu(), planners[1].rem_cap)
+    counts = k.launch_counts()
+    bid = "bid_argmin" if kind == "1d" else "bid_argmin_natural"
+    assert counts[bid] > 0 and counts["fanout_add"] > 0

@@ -34,7 +34,10 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.store.remote, cronsun_tpu_torch.store.wire, "
             "cronsun_tpu_torch.repl, cronsun_tpu_torch.repl.client, "
             "cronsun_tpu_torch.core.breaker, cronsun_tpu_torch.chaos, "
-            "cronsun_tpu_torch.chaos.hooks, cronsun_tpu_torch.entry; "
+            "cronsun_tpu_torch.chaos.hooks, cronsun_tpu_torch.entry, "
+            "cronsun_tpu_torch.parallel, cronsun_tpu_torch.parallel.mesh, "
+            "cronsun_tpu_torch.parallel.hostsync, "
+            "cronsun_tpu_torch.parallel.collectives; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
@@ -65,9 +68,18 @@ def test_no_device_on_a_cpu_only_host_raises(monkeypatch):
         TickPlanner(64, 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SchedulerService(MemStore(), job_capacity=64, node_capacity=32)
-    from cronsun_tpu_torch.entry import entry
+    from cronsun_tpu_torch.entry import dryrun_multichip, entry
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    from cronsun_tpu_torch.parallel import make_mesh, make_mesh2d
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh2d(2, 2)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -133,8 +133,11 @@ def test_plain_path_counts_no_launches():
     kernels.reset_launch_counts()
     packed, load = _tile(2, 256, 2)
     bid_argmin(bits(packed), torch.from_numpy(load))
+    kernels.bid_argmin_natural(bits(packed), torch.from_numpy(load), 64)
     fanout_add(bits(packed), torch.ones(256))
-    assert kernels.launch_counts() == {"bid_argmin": 0, "fanout_add": 0}
+    assert kernels.launch_counts() == {"bid_argmin": 0,
+                                       "bid_argmin_natural": 0,
+                                       "fanout_add": 0}
 
 
 @pytest.mark.parametrize("K,w32", [(2048, 320), (16384, 320), (65536, 320),

@@ -21,20 +21,39 @@ from cronsun_tpu_torch.bin import sched as port_sched
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# flag errors that exit 2 before any store, rendezvous or card is touched
+MESH_FLAG_ERRORS = [
+    (["--mesh2d", "4"], "--mesh2d wants DJxDN"),
+    (["--mesh2d", "0x2"], "--mesh2d wants DJxDN"),
+    (["--mesh", "4", "--mesh2d", "2x2"], "mutually exclusive"),
+    (["--mesh-hosts", "2"], "--mesh-hosts requires --mesh D"),
+]
+
+
 @pytest.mark.parametrize("argv,reason", [
     (["--profile-port", "9999"], "no profiler server"),
-    (["--mesh", "4"], "--mesh: mesh planners are not ported"),
-    (["--mesh2d", "2x2"], "--mesh2d: mesh planners are not ported"),
-    (["--mesh-hosts", "2", "--mesh", "4"], "--mesh, --mesh-hosts: mesh"),
-    (["--mesh-proc-id", "1"], "--mesh-proc-id: mesh planners"),
-    (["--mesh-coordinator", "10.0.0.1:8476"], "--mesh-coordinator: mesh"),
-    (["--mesh-replicated-bids"], "--mesh-replicated-bids: mesh"),
-    (["--mesh-demand-format", "compacted"], "--mesh-demand-format: mesh"),
+    *MESH_FLAG_ERRORS,
+    (["--mesh-hosts", "2", "--mesh", "1"], "--mesh-hosts requires"),
+    (["--mesh-hosts", "2", "--mesh", "3"], "do not divide over"),
+    (["--mesh-hosts", "2", "--mesh2d", "3x1"], "do not divide over"),
+    (["--mesh-hosts", "2", "--mesh", "4", "--mesh-proc-id", "2"],
+     "--mesh-proc-id 2 out of range"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_jax_only_and_mesh_flags_exit_2(argv, reason, capsys):
     assert port_sched.main(["--store", "127.0.0.1:1", *argv]) == 2
     err = capsys.readouterr().err
     assert reason in err and err.count("\n") == 1, err
+
+
+@pytest.mark.parametrize("argv,reason", MESH_FLAG_ERRORS,
+                         ids=lambda v: v if isinstance(v, str)
+                         else " ".join(v))
+def test_mesh_flag_errors_match_the_jax_launcher(argv, reason, capsys):
+    assert jax_sched.main(["--store", "127.0.0.1:1", *argv]) == 2
+    jax_err = capsys.readouterr().err
+    assert port_sched.main(["--store", "127.0.0.1:1", *argv]) == 2
+    assert capsys.readouterr().err == jax_err
+    assert reason in jax_err
 
 
 @pytest.mark.parametrize("argv", [
