@@ -16,12 +16,15 @@ Phases, each printing one JSON line:
    since the two sum in different orders, and bitwise equal across two
    calls): the main path's shape, a wide fleet past shared memory, rows
    whose words are not 16-byte aligned (W32 = 5, 7), one row, all nodes
-   closed, all loads equal, and buckets of rows of a larger table with
-   ``rows`` (repeats, row 0 as padding) and ``active`` (random, prefix).
+   closed, all loads equal, the bench phases' fleets (W32 = 1, 8, 16, and
+   313 and 3125, wide and unaligned), and buckets of rows of a larger
+   table with ``rows`` (repeats, row 0 as padding) and ``active``
+   (random, prefix), at W32 = 1 to 3200.
    K1n bid_argmin_natural against ``bid_block_plain(col0,
    bitplane_ties=False)``, best and choice exactly: node blocks at col0 0,
    32 and 5120, past shared memory, W32 = 5 and 7, one row, all loads
-   equal, all nodes closed, and buckets with ``rows`` and ``active``.
+   equal, all nodes closed, W32 = 1 to 3125, and buckets with ``rows``
+   and ``active``.
 4. kernel_times — on a synthetic tile at the main path's shape (K = 16384,
    N = 10240, no gather): each kernel's time (also timed back to back
    without a pre-filled stream, and with no row to work on), its plain
@@ -120,6 +123,32 @@ Phases, each printing one JSON line:
    ``MESH_LAUNCHER_WINDOWS`` leader windows every due (job, second) runs
    once; SIGTERM to rank 0: exit 0 with K1 and K2 launched, and the worker
    released with exit 0 and its plan steps logged.
+17-22. The port's benches (``cronsun_tpu_torch.scripts``) at their
+   deployment shapes, each with the launch counts set to 0 before and read
+   after (``launches_<phase>``; K1 and K2 in every ``sched_*`` phase, and
+   K1n too in ``mesh_ladder``), its seconds, and the gates of the JAX
+   script's own tests.  The first call of each kernel at each shape the
+   run gives it (at most ``PATH_CALLS_PER_KERNEL``) keeps its inputs and
+   outputs, held against the plain version after the run (``path_checks``;
+   every kernel the run launched must have one); a step that ``run_bench``
+   retried fails the phase; ``host_clock`` splits each rung or arm's steps
+   into wall, thread and process CPU, and collection time, with the
+   services' span percentiles.  The full result goes to
+   ``chiprun_out/<phase>.json``:
+   ``sched_bench`` (``run_bench``, 100 000 jobs x 1024 nodes, 10 steps:
+   the warm takeover restores with 0 divergent orders over a non-empty
+   window, 0 publish failures), ``sched_dag`` (``run_dag_bench`` at its
+   defaults: every dep fire once, no round incomplete, 0 divergence
+   after the warm takeover), ``sched_tenants`` (``run_tenant_bench`` at
+   its defaults: victims exactly once and never throttled, the noisy
+   tenant throttled and within 5 % of its quota), ``sched_partitions``
+   (``run_partition_ladder`` at 40 000 x 256, P = 1, 2, 4: 0 divergence
+   and the P = 1 fire count on every rung, fairness >= 0.8), ``sched_herd``
+   (``run_herd_bench`` at 50 000 x 512, jitter 30: no duplicate, missing
+   or off-reference fire in either arm) and ``mesh_ladder``
+   (``run_ladder`` at 65536 x 1024, D = 1, 2, 4, then the sparse rungs of
+   ``--quick --sparse``; shards share ``cuda:0``: measured collective
+   bytes = the byte model on every rung, every divergence check 0).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -177,8 +206,10 @@ SERVICE_CHECK_WINDOWS = 8
 SERVICE_TIMED_STEPS = 30
 SERVICE_NOW = T0
 # the launcher phase: leader windows checked before the SIGKILL and again
-# after the takeover, and the leader's checkpoint period (seconds)
-LAUNCHER_WINDOWS = 8
+# after the takeover (4, not 8 since the bench phases joined the script:
+# each window is 4 s of wall time), and the leader's checkpoint period
+# (seconds)
+LAUNCHER_WINDOWS = 4
 LAUNCHER_CKPT_INTERVAL = 6
 # the kernels a single-device planner launches (K1n runs on the 2-D mesh)
 SINGLE_DEVICE_KERNELS = ("bid_argmin", "fanout_add")
@@ -186,6 +217,13 @@ SINGLE_DEVICE_KERNELS = ("bid_argmin", "fanout_add")
 # windows the mesh launcher phase checks
 MESH_HEADLINE_WINDOWS = 8
 MESH_LAUNCHER_WINDOWS = 4
+# the bench phases: run_bench's timed steps (scripts/bench_sched.py's
+# --steps default), the partition ladder's rungs and the mesh ladder's
+# timed ticks per rung (scripts/bench_mesh.py's --ticks default)
+SCHED_BENCH_STEPS = 10
+SCHED_PARTITIONS = (1, 2, 4)
+MESH_LADDER_TICKS = 20
+PATH_CALLS_PER_KERNEL = 16  # calls of each kernel a bench phase keeps
 
 
 def emit(obj) -> None:
@@ -413,7 +451,11 @@ def phase_kernels(dev):
     cases = [("main", 16384, 320), ("wide_fleet", 2048, 3200),
              ("one_tile_past_48k", 2048, 400), ("empty_rows", 2048, 320),
              ("unaligned_rows_w5", 999, 5), ("unaligned_rows_w7", 1001, 7),
-             ("one_row", 1, 320)]
+             ("one_row", 1, 320),
+             # the bench phases' fleets: 8 to 100k nodes
+             ("bench_w1", 4096, 1), ("bench_w8", 8192, 8),
+             ("bench_w16", 16384, 16), ("bench_w313", 2049, 313),
+             ("bench_w3125", 1023, 3125)]
     for seed, (name, K, w32) in enumerate(cases):
         packed, load, w_int, w_frac = _random_tile(K, w32, seed, dev)
         if name == "empty_rows":
@@ -443,7 +485,12 @@ def phase_kernels(dev):
             ("bucket_random_active", 65536, 16383, 320, False),
             ("bucket_wide_fleet", 4096, 2047, 3200, True),
             ("bucket_w5", 3000, 1001, 5, False),
-            ("bucket_w7", 3000, 999, 7, True))):
+            ("bucket_w7", 3000, 999, 7, True),
+            ("bucket_w1", 40000, 4096, 1, True),
+            ("bucket_w8", 40000, 8191, 8, False),
+            ("bucket_w16", 50000, 16384, 16, True),
+            ("bucket_w313", 16384, 4095, 313, False),
+            ("bucket_w3125", 16384, 2047, 3125, True))):
         table, load, _, _ = _random_tile(J, w32, 100 + seed, dev)
         _, _, w_int, w_frac = _random_tile(K, 1, 200 + seed, dev)
         rows, active = _bucket(K, J, 300 + seed, dev, prefix)
@@ -456,7 +503,10 @@ def phase_kernels(dev):
             ("block_col0_5120", 8192, 160, 5120),
             ("block_past_48k", 2048, 400, 5120),
             ("block_w5", 999, 5, 32), ("block_w7", 1001, 7, 5120),
-            ("block_one_row", 1, 160, 64))):
+            ("block_one_row", 1, 160, 64),
+            ("block_w1", 4096, 1, 32), ("block_w8", 8192, 8, 256),
+            ("block_w16", 16384, 16, 512), ("block_w313", 2049, 313, 10016),
+            ("block_w3125", 1023, 3125, 100000))):
         packed, load, _, _ = _random_tile(K, w32, 400 + seed, dev)
         tiles[name] = (packed, load)
         k1n.append(_check_k1n(k, name, packed, load, col0))
@@ -468,7 +518,10 @@ def phase_kernels(dev):
     for seed, (name, J, K, w32, col0, prefix) in enumerate((
             ("block_bucket", 65536, 16384, 160, 5120, True),
             ("block_bucket_random_active", 65536, 8191, 160, 0, False),
-            ("block_bucket_w5", 3000, 1001, 5, 96, False))):
+            ("block_bucket_w5", 3000, 1001, 5, 96, False),
+            ("block_bucket_w16", 50000, 16384, 16, 512, True),
+            ("block_bucket_w313", 16384, 4095, 313, 0, False),
+            ("block_bucket_w3125", 16384, 2047, 3125, 100000, True))):
         table, load, _, _ = _random_tile(J, w32, 500 + seed, dev)
         rows, active = _bucket(K, J, 600 + seed, dev, prefix)
         k1n.append(_check_k1n(k, name, table, load, col0, rows, active))
@@ -2060,6 +2113,435 @@ def phase_mesh_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES,
     return counts
 
 
+# --------------------------------------------------------- the port's benches
+
+class PathCalls:
+    """While entered, the kernel wrappers as the planners call them (the
+    names in ``ops.assign`` and ``parallel.mesh``) keep the inputs and
+    outputs of one call at each (kernel, K, W32, col0, rows given, active
+    given), at most ``PATH_CALLS_PER_KERNEL`` a kernel: the first, or, while
+    the kept one had no work (no active row, no nonzero weight), the next
+    that has some, which costs a host read per call until then.  A call
+    with ``rows`` keeps the bucket's rows gathered from the table, which
+    the plain version reads the same way (the tie hash takes the row's
+    place in the bucket).  :meth:`check` holds them against the plain
+    versions after the run, so no comparison launches a kernel inside it."""
+
+    def __init__(self):
+        import threading
+        self.calls, self._kept, self._lock = [], {}, threading.Lock()
+
+    def __enter__(self):
+        import inspect
+        from cronsun_tpu_torch.ops import assign
+        from cronsun_tpu_torch.parallel import mesh
+        self._orig = [(mod, name, getattr(mod, name)) for mod, names in (
+            (assign, ("bid_argmin", "fanout_add")),
+            (mesh, ("bid_argmin", "bid_argmin_natural", "fanout_add")))
+            for name in names]
+        for mod, name, fn in self._orig:
+            setattr(mod, name, self._wrap(name, fn, inspect.signature(fn)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+    def _wrap(self, name, fn, sig):
+        import torch
+        vec_name = list(sig.parameters)[1]
+
+        def call(*a, **kw):
+            arg = sig.bind(*a, **kw).arguments
+            packed, rows, active = (arg["packed"], arg.get("rows"),
+                                    arg.get("active"))
+            col0 = int(arg.get("col0", 0))
+            key = (name, len(packed) if rows is None else len(rows),
+                   packed.shape[1], col0, rows is None, active is None)
+            with self._lock:
+                kept = self._kept.get(key)
+                fresh = kept is None and sum(
+                    c["kernel"] == name for c in self.calls
+                ) < PATH_CALLS_PER_KERNEL
+            if not (fresh or (kept is not None and not kept["work"])):
+                return fn(*a, **kw)
+            work = bool(arg[vec_name].any() if name == "fanout_add"
+                        else active is None or active.any())
+            if not (fresh or work):
+                return fn(*a, **kw)
+            got = {"kernel": name, "col0": col0, "rows": rows is not None,
+                   "work": work,
+                   "tile": (packed.clone() if rows is None
+                            else packed[rows.to(torch.int64)]),
+                   "vec": arg[vec_name].clone(),
+                   "active": None if active is None else active.clone()}
+            out = fn(*a, **kw)
+            got["out"] = (out.clone() if name == "fanout_add"
+                          else tuple(t.clone() for t in out))
+            with self._lock:
+                self.calls = [got if c is kept else c for c in self.calls
+                              ] + ([got] if fresh else [])
+                self._kept[key] = got
+            return out
+        return call
+
+    def check(self, phase) -> list:
+        """Each kept call against its plain version: K1 and K1n best and
+        choice exactly; K2 exactly on integer weights, else rtol 1e-5 (the
+        two sum in different orders), as phase 3 holds them."""
+        import torch
+        from cronsun_tpu_torch.ops import kernels as k
+        out = []
+        for c in self.calls:
+            tile, vec, act = c["tile"], c["vec"], c["active"]
+            where = (f"{phase}: {c['kernel']} at K {len(tile)}, "
+                     f"W32 {tile.shape[1]}, col0 {c['col0']}")
+            if c["kernel"] == "fanout_add":
+                ref, got = k.fanout_add_plain(tile, vec), c["out"]
+                integral = bool(torch.equal(vec, vec.round()))
+                if integral and not torch.equal(got, ref):
+                    raise AssertionError(f"{where}: integer weights not "
+                                         "exact")
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5,
+                                           msg=where)
+                err = float((got - ref).abs().max())
+            else:
+                ref = (k.bid_argmin_plain(tile, vec, None, act)
+                       if c["kernel"] == "bid_argmin" else
+                       k.bid_argmin_natural_plain(tile, vec, c["col0"], None,
+                                                  act))
+                got = c["out"]
+                if not (torch.equal(got[0], ref[0])
+                        and torch.equal(got[1], ref[1])):
+                    raise AssertionError(f"{where}: "
+                                         f"{int((got[1] != ref[1]).sum())} "
+                                         "choices differ from plain")
+                err, integral = k1_max_abs(got[0], ref[0]), None
+            out.append({"kernel": c["kernel"], "K": len(tile),
+                        "W32": tile.shape[1], "col0": c["col0"],
+                        "rows": c["rows"], "active": None if act is None
+                        else int(act.sum()), "integer_weights": integral,
+                        "work": c["work"], "max_abs_err": err})
+        self.calls, self._kept = [], {}
+        return out
+
+
+class HostClock:
+    """Where a bench's host time goes, while entered: every garbage
+    collection (``gc.callbacks``), every ``SchedulerService.step`` as
+    ``cronsun_tpu_torch.sched`` exports it (its wall time and the calling
+    thread's CPU time), and the bench's log lines, which split the run
+    into segments (a rung, an arm, a stage) and count the steps that
+    ``run_bench`` retried; each service's span percentiles when it stops.
+    It costs one callback per collection and three clock reads per step.
+    """
+
+    def __init__(self):
+        self.gcs, self.steps, self.marks, self.spans = [], [], [], []
+        self.retried, self._gc_t0 = 0, 0.0
+
+    def log(self, *a) -> None:
+        msg = " ".join(str(x) for x in a)
+        print(msg, file=sys.stderr, flush=True)
+        self.retried += msg.startswith("step retried")
+        self.marks.append((time.perf_counter(), msg))
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            self.gcs.append((self._gc_t0, info["generation"],
+                             (time.perf_counter() - self._gc_t0) * 1e3))
+
+    def __enter__(self):
+        import gc
+        import cronsun_tpu_torch.sched as sched
+        clock, self._cls = self, sched.SchedulerService
+
+        class Clocked(self._cls):
+            def step(self, *a, **kw):
+                t0, c0, p0 = (time.perf_counter(), time.thread_time(),
+                              time.process_time())
+                try:
+                    return super().step(*a, **kw)
+                finally:
+                    clock.steps.append((t0, time.perf_counter(),
+                                        (time.thread_time() - c0) * 1e3,
+                                        (time.process_time() - p0) * 1e3,
+                                        self.node_id))
+
+            def stop(self, *a, **kw):
+                clock.spans.append((time.perf_counter(), self.node_id,
+                                    _span_pcts(self)))
+                return super().stop(*a, **kw)
+        sched.SchedulerService = Clocked
+        gc.callbacks.append(self._gc)
+        self.marks.append((time.perf_counter(), "start"))
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        import cronsun_tpu_torch.sched as sched
+        sched.SchedulerService = self._cls
+        gc.callbacks.remove(self._gc)
+
+    def _gc_in(self, t0, t1, gen=None) -> "tuple[float, int]":
+        sel = [ms for t, g, ms in self.gcs
+               if t0 <= t < t1 and (gen is None or g == gen)]
+        return sum(sel), len(sel)
+
+    def summary(self) -> dict:
+        """Per segment with steps: their count, wall, CPU ms of the calling
+        thread and of the whole process (every thread: the service's
+        workers, an in-process store), collection ms (collections on any
+        thread hold the GIL) and full collections, wall by service, the
+        slowest step's own split, and the span percentiles of the services
+        whose last step is in it; then every collection of the run by
+        generation."""
+        bounds = [t for t, _ in self.marks[1:]] + [float("inf")]
+        seg_of = [next(i for i, t1 in enumerate(bounds) if s[0] < t1)
+                  for s in self.steps]
+        spans = {}                  # by the segment of the service's last step
+        for t, node, pcts in self.spans:
+            last = [i for s, i in zip(self.steps, seg_of)
+                    if s[4] == node and s[0] <= t]
+            if last:
+                spans.setdefault(last[-1], {})[node] = pcts
+        segs = {}
+        for i, (_, msg) in enumerate(self.marks):
+            steps = [s for s, j in zip(self.steps, seg_of) if j == i]
+            if not steps:
+                continue
+            by_svc = {}
+            for s in steps:
+                by_svc[s[4]] = by_svc.get(s[4], 0.0) + (s[1] - s[0]) * 1e3
+            slow = max(steps, key=lambda s: s[1] - s[0])
+            segs[f"{i:03d} {msg[:60]}"] = {
+                "steps": len(steps),
+                "wall_ms": sum((s[1] - s[0]) * 1e3 for s in steps),
+                "thread_cpu_ms": sum(s[2] for s in steps),
+                "process_cpu_ms": sum(s[3] for s in steps),
+                "gc_ms": sum(self._gc_in(s[0], s[1])[0] for s in steps),
+                "full_gcs": sum(self._gc_in(s[0], s[1], 2)[1]
+                                for s in steps),
+                "wall_ms_by_service": by_svc,
+                "slowest": {"wall_ms": (slow[1] - slow[0]) * 1e3,
+                            "thread_cpu_ms": slow[2],
+                            "process_cpu_ms": slow[3],
+                            "gc_ms": self._gc_in(slow[0], slow[1])[0]},
+                "spans": spans.get(i, {})}
+        gcs = {}
+        for _, g, ms in self.gcs:
+            n, tot, top = gcs.get(g, (0, 0.0, 0.0))
+            gcs[g] = (n + 1, tot + ms, max(top, ms))
+        return {"segments": segs, "gc_by_generation": {
+            str(g): {"count": n, "ms": tot, "max_ms": top}
+            for g, (n, tot, top) in sorted(gcs.items())}}
+
+
+def _run_bench_phase(name, run, check, summary=None):
+    """Drive one bench of ``cronsun_tpu_torch.scripts``, ``run(on_log)``,
+    with every launch count set to 0 just before and read just after;
+    ``check`` raises on a failed gate.  Every kernel the run launched is
+    held against its plain version on inputs kept from the run
+    (``PathCalls``), and no step may have been retried.  The full result
+    goes to ``chiprun_out/<name>.json``, the phase line carries ``summary``
+    of it (default: all of it) and ``HostClock``'s split.  Returns the
+    launch counts and the path checks."""
+    from cronsun_tpu_torch.ops import kernels as k
+    with PathCalls() as calls, HostClock() as clock:
+        k.reset_launch_counts()             # the bench's run starts
+        t = time.perf_counter()
+        res = run(clock.log)
+        seconds = time.perf_counter() - t
+        counts = k.launch_counts()          # ... and ends
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"{name}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    path = calls.check(name)
+    unchecked = {n for n, c in counts.items() if c} - {
+        c["kernel"] for c in path}
+    if unchecked:
+        raise AssertionError(f"{name}: no call of {unchecked} was kept")
+    if clock.retried:
+        raise AssertionError(f"{name}: {clock.retried} steps retried")
+    check(res, counts)
+    emit({"phase": name, "seconds": seconds, f"launches_{name}": counts,
+          "checks": "held", "steps_retried": clock.retried,
+          "path_checks": path, **(summary(res) if summary else res),
+          "host_clock": clock.summary(), "nvidia_smi": nvidia_smi_line()})
+    return counts, path
+
+
+def _need_launched(name, counts, kernels) -> None:
+    if not all(counts[n] for n in kernels):
+        raise AssertionError(f"{name}: a kernel of the path never launched: "
+                             f"{counts}")
+
+
+def _need_equal(name, res, want: dict) -> None:
+    bad = {k: res.get(k) for k, v in want.items() if res.get(k) != v}
+    if bad:
+        raise AssertionError(f"{name}: {bad}, want {want}")
+
+
+def phase_sched_bench(dev, steps=SCHED_BENCH_STEPS):
+    """``run_bench`` at the deployment default, 100 000 jobs x 1024 nodes:
+    cold load, the delta-checkpoint ladder, a checkpoint-restore warm
+    takeover whose first window equals the cold-loaded service's, ``steps``
+    timed pipelined steps and the serial baseline, the herd-second order
+    build, and a warm standby's takeover."""
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        _need_equal("sched_bench", res, {
+            "failover_warm_restored": 1,
+            "failover_warm_divergence_orders": 0,
+            "sched_publish_failures": 0})
+        if not res["failover_warm_window_orders"] > 0:
+            raise AssertionError("sched_bench: the compared window is empty")
+        _need_launched("sched_bench", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_bench",
+        lambda log: bs.run_bench(SERVICE_JOBS, SERVICE_NODES, steps,
+                                 on_log=log, device=dev),
+        check, lambda res: {k: v for k, v in res.items()
+                            if k != "sched_store_op_stats"})
+
+
+def phase_sched_dag(dev):
+    """``run_dag_bench`` at its defaults (50 000 jobs x 512 nodes, 3
+    rounds, fan-in 4): every dep fire once, no round incomplete, and a
+    delta-chain warm takeover with zero divergence."""
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        if res["dag_fires_total"] != res["dag_expected_fires"]:
+            raise AssertionError(f"sched_dag: {res['dag_fires_total']} fires, "
+                                 f"{res['dag_expected_fires']} expected")
+        _need_equal("sched_dag", res, {
+            "dag_duplicate_fires": 0, "dag_missing_fires": 0,
+            "dag_incomplete_rounds": 0, "dag_publish_failures": 0,
+            "dag_warm_restored": 1, "dag_warm_divergence_orders": 0})
+        _need_launched("sched_dag", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_dag", lambda log: bs.run_dag_bench(on_log=log, device=dev),
+        check)
+
+
+def phase_sched_tenants(dev):
+    """``run_tenant_bench`` at its defaults: victims fire exactly once and
+    are never throttled, and the noisy tenant is throttled and held to its
+    quota (the reference gate's ±5 %, ``tests/test_tenancy.py:963-967``).
+    """
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        _need_equal("sched_tenants", res, {
+            "tenant_victim_missing_fires": 0,
+            "tenant_victim_duplicate_fires": 0,
+            "tenant_victim_throttled_fires": 0})
+        if not res["tenant_noisy_throttled_fires"] > 0:
+            raise AssertionError("sched_tenants: the noisy tenant was never "
+                                 "throttled")
+        if abs(res["tenant_noisy_clamp_ratio"] - 1.0) > 0.05:
+            raise AssertionError(f"sched_tenants: noisy admitted "
+                                 f"{res['tenant_noisy_admitted_rate']}/s "
+                                 f"against a quota of "
+                                 f"{res['tenant_noisy_quota_rate']}/s")
+        _need_launched("sched_tenants", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_tenants",
+        lambda log: bs.run_tenant_bench(on_log=log, device=dev), check)
+
+
+def phase_sched_partitions(dev, parts=SCHED_PARTITIONS):
+    """``run_partition_ladder`` at 40 000 jobs x 256 nodes over ``parts``
+    partition leaders: every rung plans exactly the P = 1 fire set, and the
+    FNV split gives each partition at least 0.8 of the largest one's fires
+    (``tests/test_partition.py:393-397``)."""
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        rungs = res["sched_partition_ladder"]
+        base = rungs[str(min(parts))]["fires"]
+        bad = {p: r for p, r in rungs.items()
+               if r["divergence"] or r["fires"] != base or r["fairness"] < 0.8}
+        if bad or not base:
+            raise AssertionError(f"sched_partitions: rungs {bad} diverge, "
+                                 f"plan other than {base} fires or split "
+                                 "below 0.8")
+        _need_launched("sched_partitions", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_partitions",
+        lambda log: bs.run_partition_ladder(40_000, 256, parts=parts,
+                                            on_log=log, device=dev),
+        check)
+
+
+def phase_sched_herd(dev):
+    """``run_herd_bench`` at 50 000 jobs x 512 nodes, jitter 30: both arms
+    without a duplicate or missing fire, at the reference's epochs."""
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        _need_equal("sched_herd", res, {
+            f"herd_{k}_{arm}": 0 for arm in ("unsmeared", "smeared")
+            for k in ("duplicate_fires", "missing_fires",
+                      "reference_divergence")})
+        _need_launched("sched_herd", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_herd",
+        lambda log: bs.run_herd_bench(50_000, 512, jitter=30, on_log=log,
+                                      device=dev), check)
+
+
+def phase_mesh_ladder(dev, ticks=MESH_LADDER_TICKS):
+    """``run_ladder`` at 65536 jobs x 1024 nodes over D = 1, 2, 4 shards
+    (1-D, and 2-D (D/2) x 2 from D = 4, each bucket-sharded and
+    replicated), then ``run_sparse_ladder`` as ``--quick --sparse`` runs
+    it; shards past the card count share the card.  Every rung's measured
+    collective bytes equal the byte model, every divergence check is 0, and
+    the 2-D rungs launch K1n."""
+    from cronsun_tpu_torch.scripts import bench_mesh as bm
+
+    def run(log):
+        ladder = bm.run_ladder([1, 2, 4], [(65536, 1024)], ticks, False,
+                               on_log=log, device=dev)
+        sparse = bm.run_sparse_ladder([2], True, on_log=log,
+                                      device=dev)
+        return {"multichip_ladder": ladder, "multichip_sparse_ladder": sparse}
+
+    def rungs(res):
+        return [r for part in ("multichip_ladder", "multichip_sparse_ladder")
+                for r in res[part] if r["path"] != "compare"]
+
+    def check(res, counts):
+        for r in rungs(res):
+            if r["measured_bytes_per_tick"] != r["predicted_bytes_per_tick"] \
+                    or r.get("fire_set_divergence", 0) or not r["fired_per_tick"]:
+                raise AssertionError(f"mesh_ladder: rung {r}")
+        if not any("fire_set_divergence" in r for r in rungs(res)):
+            raise AssertionError("mesh_ladder: no divergence check ran")
+        _need_launched("mesh_ladder", counts,
+                       SINGLE_DEVICE_KERNELS + ("bid_argmin_natural",))
+
+    keep = ("devices", "mesh", "path", "jobs", "nodes", "k_local",
+            "fired_per_tick", "tick_p50_ms", "tick_p99_ms",
+            "windowed_ms_per_tick", "demand_format", "measured_bytes_per_tick",
+            "shards_per_device", "fire_fraction", "fire_set_divergence",
+            "phase_bid_ms", "phase_gather_ms", "phase_reconcile_ms")
+    return _run_bench_phase(
+        "mesh_ladder", run, check,
+        lambda res: {"ticks": ticks, "rungs": [
+            {k: r[k] for k in keep if k in r} for r in rungs(res)]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
@@ -2085,6 +2567,13 @@ def main(argv=None) -> int:
     phase_mesh_equivalence(dev)
     mesh = phase_mesh_headline(dev, profile=args.profile)
     mesh_launcher = phase_mesh_launcher()
+    benches = {"sched_bench": phase_sched_bench(dev),
+               "sched_dag": phase_sched_dag(dev),
+               "sched_tenants": phase_sched_tenants(dev),
+               "sched_partitions": phase_sched_partitions(dev),
+               "sched_herd": phase_sched_herd(dev),
+               "mesh_ladder": phase_mesh_ladder(dev)}
+    bench_checks = [t for _, checked in benches.values() for t in checked]
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
@@ -2092,13 +2581,19 @@ def main(argv=None) -> int:
         r["launches_launcher"] = launcher.get(r["name"], 0)
         r["launches_mesh"] = {m: c[r["name"]] for m, c in mesh.items()}
         r["launches_mesh_launcher"] = mesh_launcher.get(r["name"], 0)
+        for phase, (c, _) in benches.items():
+            r[f"launches_{phase}"] = c[r["name"]]
         if r["name"] == "bid_argmin_natural":
             # K1n's path is the 2-D mesh: its launches are that run's
             r["launches"] = mesh["2d_2x2"][r["name"]]
         r["path"] = [{key: t[key] for key in ("ms", "bound_ms", "plain_ms")}
                      for t in path if t["name"] == r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [
-            t["max_abs_err"] for t in path if t["name"] == r["name"]])
+            t["max_abs_err"] for t in path if t["name"] == r["name"]] + [
+            t["max_abs_err"] for t in bench_checks
+            if t["kernel"] == r["name"]])
+        r["calls_checked_in_benches"] = sum(
+            t["kernel"] == r["name"] for t in bench_checks)
         r.pop("work")
     emit({"kernels": rows})
     print(smi, flush=True)

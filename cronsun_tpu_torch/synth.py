@@ -11,6 +11,9 @@ million-row table costs no per-row Python.
 both, as the armed equivalence checks do), and :func:`completions` makes the
 completion rounds folded between windows.
 
+:func:`synth_table` is ``bench.py``'s ``synth_table``: a bare schedule table of
+``@every`` rows, as the mesh bench installs it.
+
 :func:`seed_service_store` is of another kind: it writes a whole cluster
 (nodes, groups, jobs, ``@every`` phase anchors) into a coordination store,
 for a scheduler service to load.
@@ -22,10 +25,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .device import DeviceLike
 from .ops.deps import NEVER, POLICY_FIRE, POLICY_HOLD, POLICY_SKIP
 from .ops.schedule_table import (DEP_BROKEN, DEP_EMPTY, DTYPES,
-                                 FRAMEWORK_EPOCH, MAX_DEPS, _rows_to_numpy,
-                                 make_row)
+                                 FRAMEWORK_EPOCH, MAX_DEPS, ScheduleTable,
+                                 _rows_to_numpy, make_row, table_from_numpy)
 
 # six-field cron specs and @every rows of mixed rates (sec min hour dom month dow)
 MIXED_SPECS = (
@@ -111,6 +115,22 @@ def synth_state(J: int, N: int, *, seed: int,
         tb_tokens=np.zeros(T, np.float32), row_tenant=np.zeros(J, np.int32),
         dep_enabled=np.bool_(False), tenants_enabled=np.bool_(False))
     return state
+
+
+def synth_table(J: int, fire_period_lo: int, fire_period_hi: int,
+                seed: int = 0, device: DeviceLike = None) -> ScheduleTable:
+    """``bench.py:77-97`` on ``device``: J active ``@every`` rows, each
+    period uniform in [lo, hi) and its phase uniform over the period (a
+    steady aggregate fire rate), every other column empty."""
+    rng = np.random.default_rng(seed)
+    cols = _rows_to_numpy([], J)
+    cols["is_every"][:] = True
+    cols["active"][:] = True
+    cols["period"] = rng.integers(fire_period_lo, fire_period_hi,
+                                  J).astype(np.int32)
+    cols["phase_mod"] = (rng.integers(0, 1 << 30, J)
+                         % cols["period"]).astype(np.int32)
+    return table_from_numpy(cols, device)
 
 
 def bench_mixed_specs(n: int = 10_000, seed: int = 0) -> list:

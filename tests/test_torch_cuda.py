@@ -403,3 +403,23 @@ def test_mesh_planner_on_the_card_matches_the_cpu(cuda, kind):
     counts = k.launch_counts()
     bid = "bid_argmin" if kind == "1d" else "bid_argmin_natural"
     assert counts[bid] > 0 and counts["fanout_add"] > 0
+
+
+@pytest.mark.parametrize("T", [16, 64, 4096])
+def test_fair_shares_non_dyadic_weights_on_the_card_match_the_cpu(cuda, T):
+    """The device waterfill on the card against the same on the CPU with
+    weights that are not dyadic (uniform f32 draws, and the JAX test's
+    two-decimal ones), where partial sums round: the shares must be equal."""
+    from cronsun_tpu_torch.ops.tenancy import fair_shares
+    rng = np.random.default_rng(17 + T)
+    for i in range(300):
+        d = rng.integers(0, 40, T)
+        w = (rng.uniform(0.05, 7.0, T) if i % 2
+             else rng.uniform(0.25, 4.0, T).round(2)).astype(np.float32)
+        cap = float(rng.integers(0, 20 * T))
+        got, ref = (fair_shares(torch.as_tensor(d, dtype=torch.int32,
+                                                device=dev),
+                                torch.as_tensor(w, device=dev),
+                                torch.tensor(cap, device=dev)).cpu()
+                    for dev in (cuda, torch.device("cpu")))
+        assert torch.equal(got, ref), (i, d, w, cap)

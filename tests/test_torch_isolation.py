@@ -37,7 +37,10 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.chaos.hooks, cronsun_tpu_torch.entry, "
             "cronsun_tpu_torch.parallel, cronsun_tpu_torch.parallel.mesh, "
             "cronsun_tpu_torch.parallel.hostsync, "
-            "cronsun_tpu_torch.parallel.collectives; "
+            "cronsun_tpu_torch.parallel.collectives, "
+            "cronsun_tpu_torch.store.native, cronsun_tpu_torch.scripts, "
+            "cronsun_tpu_torch.scripts.bench_sched, "
+            "cronsun_tpu_torch.scripts.bench_mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")

@@ -5,6 +5,9 @@ arrays, on the CPU) and to the port (``device="cpu"``); results are compared
 as numpy arrays.
 """
 
+import contextlib
+import signal
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -88,6 +91,22 @@ class PlannerPair:
         assert_plans_equal(ref, got)
         assert_state_equal(self.jp, self.tp)
         return got
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int, what: str):
+    """Raise ``TimeoutError`` in the test's (main) thread when the block
+    runs past ``seconds``: a per-test time limit for long differential
+    runs (SIGALRM; the test process runs tests on its main thread)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"{what} ran past its {seconds} s limit")
+    prev = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, prev)
 
 
 # ---- mesh planners ---------------------------------------------------------
