@@ -102,8 +102,9 @@ Phases, each printing one JSON line:
    logged launch counts of both kernels above 0 (``launches_launcher``).
 14. mesh_equivalence — the mesh planners with every shard on the card
    (``cuda:0``) against the same planners on the CPU, from phase 5's
-   seeded state (65536 jobs x 1024 nodes, W = 4, 5 windows, caps 4
-   re-opened every window): the 1-D mesh at D = 2 and the 2-D mesh at
+   seeded state (65536 jobs x 1024 nodes, W = 4,
+   ``MESH_EQUIVALENCE_WINDOWS`` windows, caps 4 re-opened every
+   window): the 1-D mesh at D = 2 and the 2-D mesh at
    2 x 2, each bucket-sharded with dense and with compacted demand and
    replicated.  Every TickPlan field, the final load and rem_cap
    identical.
@@ -149,8 +150,27 @@ Phases, each printing one JSON line:
    (``run_ladder`` at 65536 x 1024, D = 1, 2, 4, then the sparse rungs of
    ``--quick --sparse``; shards share ``cuda:0``: measured collective
    bytes = the byte model on every rung, every divergence check 0).
+23. chaos_drills — every drill of ``cronsun_tpu_torch.scripts.bench_chaos``
+   (``DRILLS``, at its default seed and size, in order; ``native_smoke``
+   only where the native store and result-store binaries are found, else a
+   line says it was skipped), every drill's schedulers on the card, then
+   the replica drill at seeds 44 and 45 and its unreplicated control arm.
+   Held with the JAX tests' gates (``tests/test_chaos.py``,
+   ``test_chaos_drills.py``, ``test_repl.py``): no finding, recovery under
+   16 s, the brownout bounds, the control arm losing acked probes; K1 and
+   K2 launched, the kept calls equal to plain (as in 17-22), and the card's
+   allocated bytes back within ``CARD_BYTES_LEFT_BY_DRILLS`` of before once
+   every fleet closed.  Per drill: wall seconds, recovery, executions,
+   injected faults.
+24. sched_trace — ``run_trace_bench`` at its defaults (50 000 jobs x 512
+   nodes, 64 traced jobs pinned to two node agents, 8 live seconds, 12
+   paired steps, W = 4): sampled fires with every wire stage (publish,
+   claim, queue, run, record) present and non-negative, both overhead arms
+   measured, K1 and K2 launched; the reference's overhead gate (< 2 % + 1
+   ms of step p99) is printed, not held.
 
-Then the kernels line, the nvidia-smi line, and as the last line
+Then each phase's seconds, the kernels line, the nvidia-smi line, and as
+the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
 """
 
@@ -161,6 +181,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -213,8 +234,10 @@ LAUNCHER_WINDOWS = 4
 LAUNCHER_CKPT_INTERVAL = 6
 # the kernels a single-device planner launches (K1n runs on the 2-D mesh)
 SINGLE_DEVICE_KERNELS = ("bid_argmin", "fanout_add")
-# the mesh phases: timed windows of each mesh headline, and the leader
-# windows the mesh launcher phase checks
+# the mesh phases: windows each mesh planner plans on the card and on the
+# CPU, timed windows of each mesh headline, and the leader windows the
+# mesh launcher phase checks
+MESH_EQUIVALENCE_WINDOWS = 5
 MESH_HEADLINE_WINDOWS = 8
 MESH_LAUNCHER_WINDOWS = 4
 # the bench phases: run_bench's timed steps (scripts/bench_sched.py's
@@ -224,6 +247,9 @@ SCHED_BENCH_STEPS = 10
 SCHED_PARTITIONS = (1, 2, 4)
 MESH_LADDER_TICKS = 20
 PATH_CALLS_PER_KERNEL = 16  # calls of each kernel a bench phase keeps
+# the chaos drills: card bytes still allocated once every fleet closed
+# (one 256 x 64 service's planner holds several MB)
+CARD_BYTES_LEFT_BY_DRILLS = 1 << 20
 
 
 def emit(obj) -> None:
@@ -1833,7 +1859,8 @@ MESHES = (("1d_D2", "ShardedTickPlanner", (2,)),
           ("2d_2x2", "Sharded2DTickPlanner", (2, 2)))
 
 
-def phase_mesh_equivalence(dev, J=65536, N=1024, windows=5, W=4):
+def phase_mesh_equivalence(dev, J=65536, N=1024,
+                           windows=MESH_EQUIVALENCE_WINDOWS, W=4):
     """The mesh planners with their shards on the card against the same
     planners on the CPU, from one seeded state at the config-sample shape:
     the 1-D mesh at D = 2 and the 2-D mesh at 2 x 2, each with the
@@ -2542,6 +2569,182 @@ def phase_mesh_ladder(dev, ticks=MESH_LADDER_TICKS):
             {k: r[k] for k in keep if k in r} for r in rungs(res)]})
 
 
+# ------------------------------------------- the chaos drills and the trace bench
+
+def _need(name, cond, what) -> None:
+    if not cond:
+        raise AssertionError(f"{name}: {what}")
+
+
+def check_drills(res) -> None:
+    """The JAX tests' gates of each drill (``tests/test_chaos.py:706-712``,
+    ``tests/test_chaos_drills.py``, ``tests/test_repl.py:644-675``)."""
+    name = "chaos_drills"
+    _need(name, res["total_findings"] == 0,
+          {k: v["findings"] for k, v in res.items()
+           if isinstance(v, dict) and v.get("findings")})
+    smoke = res["smoke"]["info"]
+    _need(name, smoke["schedule_deterministic"], "smoke: schedules differ")
+    _need(name, smoke["executions"] > 0, "smoke: nothing ran")
+    _need(name, smoke["injected"].get("store.rpc:reply_lost", 0) > 0
+          and smoke["injected"].get("logsink.rpc:reply_lost", 0) > 0,
+          f"smoke: faults not injected {smoke['injected']}")
+    for d in ("leader_kill9", "partition_leader_kill"):
+        info = res[d]["info"]
+        _need(name, info["recovery_s"] < 16.0,
+              f"{d}: recovery {info['recovery_s']} s")
+        _need(name, info["executions"] > 0, f"{d}: nothing ran")
+    _need(name, all(n > 0 for n in
+                    res["partition_leader_kill"]["info"]["slice_sizes"]
+                    .values()), "partition_leader_kill: an empty slice")
+    _need(name, res["shard_partition"]["info"]["executions"] > 0,
+          "shard_partition: nothing ran")
+    b = res["brownout"]["info"]
+    _need(name, b["degraded_p99_ms"] >= b["delay_ms"] * 0.8,
+          f"brownout: no stall induced {b['degraded_p99_ms']} ms")
+    _need(name, b["hardened_p99_ms"] <= max(2.0 * b["baseline_p99_ms"],
+                                            20.0),
+          f"brownout: hardened p99 {b['hardened_p99_ms']} ms over "
+          f"max(2 x {b['baseline_p99_ms']}, 20)")
+    d = res["brownout_dispatch"]["info"]
+    _need(name, d["lost_fires"] == 0, "brownout_dispatch: lost fires")
+    _need(name, d["healthy_fires"] > 0 and d["degraded_fires"] > 0,
+          "brownout_dispatch: a population is empty")
+    _need(name, d["degraded_fire_p99_ms"] >= d["delay_ms"],
+          f"brownout_dispatch: degraded p99 {d['degraded_fire_p99_ms']} ms "
+          f"under the {d['delay_ms']} ms delay")
+    _need(name, d["slow_waterfalls"] and {"publish", "claim"} <= set(
+        d["slow_waterfalls"][0]["stages"]),
+        "brownout_dispatch: no slow waterfall with publish and claim")
+    if "native_smoke" in res:
+        n = res["native_smoke"]["info"]
+        _need(name, n.get("backend") == "native" and n["executions"] > 0,
+              f"native_smoke: {n}")
+    for seed, r in res["replica_leader_kill_seeds"].items():
+        _need(name, r["findings"] == [] and r["info"]["acked_probes"] > 0,
+              f"replica_leader_kill seed {seed}: {r['findings']}")
+    codes = {f["code"] for f in res["replica_leader_kill_unreplicated"]
+             ["findings"]}
+    _need(name, "acked_record_lost" in codes,
+          f"replica_leader_kill unreplicated: {codes} (must lose acked "
+          "probes)")
+
+
+def threads_left(before, grace_s=10.0):
+    """Names of the threads started since ``before`` (a set of threads)
+    that are still alive after up to ``grace_s`` seconds."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in before and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            return sorted(t.name for t in left)
+        time.sleep(0.2)
+
+
+def phase_chaos_drills(dev):
+    """Every drill of ``bench_chaos.DRILLS`` at its default seed and size,
+    in order, its schedulers on ``dev`` (``native_smoke`` only where both
+    native binaries are found); then the replica drill at the two further
+    seeds of its gate and its unreplicated control arm, which must lose
+    acked probes.  The card's allocated bytes are read before and after
+    (a killed service's tensors must not outlive its fleet), and no thread
+    started by the drills may outlive them (a killed agent's or
+    scheduler's included).  Each drill's ``agent_redeliveries`` says how
+    many orders its agents re-read after a failed claim."""
+    import gc
+    import torch
+    from cronsun_tpu_torch.scripts import bench_chaos as bc
+    names = list(bc.DRILLS)
+    if not bc.native_available():
+        names.remove("native_smoke")
+        print("chaos_drills: native_smoke skipped: the native cronsun-stored "
+              "and cronsun-logd binaries are not found and do not build here",
+              flush=True)
+    bc.warm_device(dev)
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    threads_before = set(threading.enumerate())
+
+    def replica(seed, log):
+        n = bc.Fleet.agent_redeliveries
+        r = bc.drill_replica_leader_kill(seed=seed, on_log=log, device=dev)
+        r["info"]["agent_redeliveries"] = bc.Fleet.agent_redeliveries - n
+        return r
+
+    def run(log):
+        res = bc.run_drills(names, on_log=log, device=dev)
+        res["replica_leader_kill_seeds"] = {
+            seed: replica(seed, log) for seed in (44, 45)}
+        res["replica_leader_kill_unreplicated"] = \
+            bc.drill_replica_leader_kill(replicated=False, on_log=log,
+                                         device=dev)
+        return res
+
+    def check(res, counts):
+        check_drills(res)
+        _need_launched("chaos_drills", counts, SINGLE_DEVICE_KERNELS)
+        gc.collect()
+        grown = torch.cuda.memory_allocated(dev) - before
+        _need("chaos_drills", grown <= CARD_BYTES_LEFT_BY_DRILLS,
+              f"{grown} bytes stay allocated on the card after every "
+              "fleet closed (a service's tensors outlive it)")
+        left = threads_left(threads_before)
+        _need("chaos_drills", not left,
+              f"threads outlive the drills' fleets: {left}")
+
+    def summary(res):
+        keep = ("recovery_s", "executions", "injected", "sink_total",
+                "baseline_p99_ms", "degraded_p99_ms", "hardened_p99_ms",
+                "healthy_fire_p99_ms", "degraded_fire_p99_ms",
+                "acked_probes", "lost_probes", "saves", "skipped",
+                "agent_redeliveries")
+        gc.collect()
+        return {"drills": {
+            k: {"wall_s": v.get("wall_s"), "findings": len(v["findings"]),
+                **{f: v["info"][f] for f in keep if f in v["info"]}}
+            for k, v in res.items() if isinstance(v, dict) and "info" in v},
+            "total_findings": res["total_findings"],
+            "replica_seeds": {
+                s: {"findings": len(r["findings"]),
+                    "agent_redeliveries": r["info"]["agent_redeliveries"]}
+                for s, r in res["replica_leader_kill_seeds"].items()},
+            "unreplicated_codes": sorted({
+                f["code"] for f in
+                res["replica_leader_kill_unreplicated"]["findings"]}),
+            "card_bytes_before": before,
+            "card_bytes_after": torch.cuda.memory_allocated(dev)}
+
+    return _run_bench_phase("chaos_drills", run, check, summary)
+
+
+TRACE_STAGES = ("publish", "claim", "queue", "run", "record")
+
+
+def phase_sched_trace(dev):
+    """``run_trace_bench`` at its defaults (50 000 jobs x 512 nodes, 64
+    traced jobs, 8 live seconds, 12 paired steps, W = 4): sampled fires
+    with every wire stage of the waterfall (``tests/test_bench_smoke.py:
+    297-303``), both overhead arms; the reference's slow timing gate
+    (``:318``, sampling adds < 2 % + 1 ms to step p99) is printed, not
+    held."""
+    from cronsun_tpu_torch.scripts import bench_sched as bs
+
+    def check(res, counts):
+        name = "sched_trace"
+        _need(name, res["trace_stage_fires"] > 0, "no sampled fire")
+        stages = res["trace_stage_p99_ms"]
+        _need(name, all(st in stages and stages[st] >= 0.0
+                        for st in TRACE_STAGES), f"stages {stages}")
+        _need(name, res["trace_overhead_on_p99_ms"] > 0
+              and res["trace_overhead_off_p99_ms"] > 0, "an empty arm")
+        _need_launched(name, counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase(
+        "sched_trace", lambda log: bs.run_trace_bench(on_log=log, device=dev),
+        check)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
@@ -2555,24 +2758,37 @@ def main(argv=None) -> int:
     import torch
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    rows = phase_kernels(dev)
-    phase_plan_equivalence(dev)
-    counts, path = phase_headline(dev, args.windows, args.profile)
-    phase_plan_equivalence_armed(dev)
-    armed = phase_headline_armed(dev, args.windows, args.profile)
-    phase_next_fire(dev)
-    service = phase_service(dev)
-    launcher = phase_launcher()
-    phase_mesh_equivalence(dev)
-    mesh = phase_mesh_headline(dev, profile=args.profile)
-    mesh_launcher = phase_mesh_launcher()
-    benches = {"sched_bench": phase_sched_bench(dev),
-               "sched_dag": phase_sched_dag(dev),
-               "sched_tenants": phase_sched_tenants(dev),
-               "sched_partitions": phase_sched_partitions(dev),
-               "sched_herd": phase_sched_herd(dev),
-               "mesh_ladder": phase_mesh_ladder(dev)}
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, dev)
+    timed("plan_equivalence", phase_plan_equivalence, dev)
+    counts, path = timed("headline", phase_headline, dev, args.windows,
+                         args.profile)
+    timed("plan_equivalence_armed", phase_plan_equivalence_armed, dev)
+    armed = timed("headline_armed", phase_headline_armed, dev, args.windows,
+                  args.profile)
+    timed("next_fire", phase_next_fire, dev)
+    service = timed("service", phase_service, dev)
+    launcher = timed("launcher", phase_launcher)
+    timed("mesh_equivalence", phase_mesh_equivalence, dev)
+    mesh = timed("mesh_headline", phase_mesh_headline, dev,
+                 profile=args.profile)
+    mesh_launcher = timed("mesh_launcher", phase_mesh_launcher)
+    benches = {name: timed(name, fn, dev) for name, fn in (
+        ("sched_bench", phase_sched_bench), ("sched_dag", phase_sched_dag),
+        ("sched_tenants", phase_sched_tenants),
+        ("sched_partitions", phase_sched_partitions),
+        ("sched_herd", phase_sched_herd), ("mesh_ladder", phase_mesh_ladder),
+        ("chaos_drills", phase_chaos_drills),
+        ("sched_trace", phase_sched_trace))}
+    emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     bench_checks = [t for _, checked in benches.values() for t in checked]
     for r in rows:
         r["launches"] = counts[r["name"]]

@@ -1,7 +1,6 @@
 """In-process fault points for the wire clients.
 
-A TCP fault proxy (``cronsun_tpu/chaos/faultproxy.py``, not in this
-package) can sever and
+The TCP :class:`~cronsun_tpu_torch.chaos.faultproxy.FaultProxy` can sever and
 slow a pipe, but two failure shapes need the CLIENT's cooperation to
 inject precisely:
 

@@ -14,21 +14,22 @@ on the card, or on the CPU when asked).
 - :func:`run_partition_ladder` — the same job set planned by P partition
   leaders, with the fire-set divergence from P = 1;
 - :func:`run_herd_bench` — a minute-boundary herd with jitter 0 against
-  jitter J seconds, checked against the reference smear.
+  jitter J seconds, checked against the reference smear;
+- :func:`run_trace_bench` — a live mini-fleet (two node agents and a result
+  store beside the scheduler): per-stage fire latency from the trace plane,
+  and the paired sampling-overhead gate.
 
 Run as
 
     python -m cronsun_tpu_torch.scripts.bench_sched [--jobs 100000]
         [--nodes 1024] [--steps 10] [--device cpu] [--json out.json]
-        [--dag | --tenants | --herd | --partition-ladder P,P,..]
+        [--dag | --tenants | --herd | --trace | --partition-ladder P,P,..]
 
 Flags, JSON keys and workloads are the JAX script's, so one merge takes
 either script's output; the timings differ, the names do not.  The store
 is ``native/cronsun-stored`` when it is there or builds (the JAX script's
 choice), else the port's ``StoreServer``; the backend is printed under
-``sched_bench_backend`` / ``dag_bench_backend``.  ``--trace`` exits 2:
-the trace bench drives node agents and a result store, which the port does
-not have.
+``sched_bench_backend`` / ``dag_bench_backend`` / ``trace_bench_backend``.
 """
 
 import argparse
@@ -39,10 +40,6 @@ import time
 
 from ..device import resolve_device
 from ..synth import seed_service_store
-
-TRACE_REFUSAL = ("--trace is not ported: the trace bench drives node agents "
-                 "and a result store (LogSinkServer), which the port does "
-                 "not have; it waits for ROADMAP item 13b")
 
 
 def seed(store, ks, n_jobs, n_nodes, on_log):
@@ -820,6 +817,182 @@ def run_tenant_bench(n_tenants=6, victim_jobs=400, noisy_rate=20.0,
     return out
 
 
+def run_trace_bench(n_jobs=50_000, n_nodes=512, steps=12, window_s=4,
+                    traced_jobs=64, seconds=8, on_log=print, device=None):
+    """Trace-plane bench at the 50k x 512 shape:
+
+    1. **Per-stage lag breakdown** — a live mini-fleet rides the full
+       wire (scheduler -> store -> two real agents -> logd): the
+       phantom 50k-job table is planned and published every second
+       while ``traced_jobs`` ``trace: true`` interval jobs pinned to
+       the real agents carry spans through the lifecycle.  Reported as
+       ``trace_stage_p99_ms`` (one key per waterfall stage) — which
+       stage owns the fleet's fire latency, measured from the trace
+       plane itself rather than inferred from aggregate counters.
+    2. **Sampling overhead gate** — the scheduler's stamping cost at
+       the same shape, measured as a PAIRED INTERLEAVE (alternating
+       steps with ``trace_shift`` -1 and the default shift on one
+       service, so drift hits both arms equally).  ``trace_shift=-1``
+       is exactly what ``CRONSUN_TRACE=off`` produces at construction
+       (trace.armed() false).  Gate: sampling on adds < 2% to step p99
+       (+1 ms timer-noise floor).
+
+    The store is the native one where :func:`_store_server` finds it,
+    else the port's ``StoreServer`` (``trace_bench_backend``); the
+    agents run an instant executor, never a subprocess."""
+    import numpy as np
+
+    from .. import trace as _trace
+    from ..core import Keyspace
+    from ..logsink.serve import LogSinkServer, RemoteJobLogStore
+    from ..node.agent import NodeAgent
+    from ..node.executor import ExecResult
+    from ..sched import SchedulerService
+    from ..store.remote import RemoteStore
+
+    class _NullExecutor:
+        """Instant exec: the bench measures the dispatch plane's
+        stages (publish/claim/queue/record), not /bin/true's fork cost
+        — a real subprocess per fire inside this threaded process is
+        both slow and fork-unsafe."""
+
+        def run_job(self, job_id="", command="", user="", timeout=0,
+                    retry=0, interval=0, parallels=0, env=None,
+                    sleep=time.sleep):
+            now = time.time()
+            return ExecResult(True, "ok", now, now, exit_code=0)
+
+    dev = resolve_device(device)
+    ks = Keyspace()
+    srv, backend = _store_server()
+    logd = LogSinkServer().start()
+    out = {"trace_bench_jobs": n_jobs, "trace_bench_nodes": n_nodes,
+           "trace_bench_backend": backend}
+    store = RemoteStore(srv.host, srv.port, timeout=600)
+    agents, svc = [], None
+    try:
+        seed(store, ks, n_jobs, n_nodes, on_log)
+        # two REAL agents among the phantom nodes; the traced jobs pin
+        # to them round-robin (interval kind: the claim stage is a real
+        # fence settle, not a broadcast no-op)
+        for i in range(2):
+            a = NodeAgent(
+                RemoteStore(srv.host, srv.port, timeout=60),
+                RemoteJobLogStore("127.0.0.1", logd.port, timeout=60),
+                node_id=f"tr-a{i}", ttl=60.0, lock_ttl=120.0,
+                proc_req=0.0, trace_shift=0,
+                executor=_NullExecutor())
+            a.register()
+            agents.append(a)
+        items = []
+        for j in range(traced_jobs):
+            items.append((
+                ks.job_key("default", f"tr{j:03d}"),
+                json.dumps({"id": f"tr{j:03d}", "name": f"tr{j:03d}",
+                            "command": "true", "kind": 2, "trace": True,
+                            "rules": [{"id": "r",
+                                       "timer": "* * * * * *",
+                                       "nids": [agents[j % 2].id]}]})))
+        store.put_many(items)
+        svc = SchedulerService(store, job_capacity=n_jobs + 256,
+                               node_capacity=n_nodes + 8,
+                               window_s=window_s, dispatch_ttl=3600.0,
+                               node_id="trace-bench",
+                               trace_shift=_trace.DEFAULT_SHIFT, device=dev)
+        on_log(f"loaded {len(svc.jobs)} jobs; driving {seconds} live "
+               f"seconds")
+        svc.step()                     # the first window (cold caches)
+        svc._builder.flush()
+        svc.reset_latency_stats()
+        # ---- leg 1: live wall-second drive, spans ride the wire -----
+        # the production loop's pacing: step only while the plan
+        # cursor is within one window of wall time (a step plans a
+        # whole window_s window, so stepping every wall second would
+        # run the cursor away 4:1 and measure staging delay, not the
+        # plane)
+        t_start = int(time.time()) + 1
+        t_end = t_start + seconds
+        while time.time() < t_end:
+            nxt = svc._next_epoch
+            if nxt is None or nxt <= int(time.time()) + window_s:
+                svc.step()
+                svc._builder.flush()
+            for a in agents:
+                a.poll()
+            time.sleep(0.05)
+        svc.publisher.flush()
+        deadline = time.monotonic() + 20.0
+        while time.monotonic() < deadline:
+            for a in agents:
+                a.poll()
+                a.join_running()
+            if not any(a._staged for a in agents):
+                break
+            time.sleep(0.1)
+        for a in agents:
+            a._flush_acks()
+            a._flush_records(force=True)
+        sink = agents[0].sink
+        stages: dict = {}
+        n_spans = 0
+        for j in range(traced_jobs):
+            jid = f"tr{j:03d}"
+            for sec in range(t_start, t_start + seconds + window_s):
+                for sp in sink.trace_get(jid, sec):
+                    ts = sp.get("ts") or {}
+                    n_spans += 1
+                    for st, ms in _trace.stage_durations(sec, ts).items():
+                        stages.setdefault(st, []).append(ms)
+        out["trace_stage_fires"] = n_spans
+        out["trace_stage_p99_ms"] = {
+            st: round(float(np.percentile(v, 99)), 2)
+            for st, v in sorted(stages.items())}
+        on_log(f"stage p99s over {n_spans} sampled fires: "
+               f"{out['trace_stage_p99_ms']}")
+
+        # ---- leg 2: paired-interleave sampling overhead -------------
+        lat = {True: [], False: []}
+        t = (svc._next_epoch or int(time.time())) + 5
+        for k in range(2 * steps + 2):
+            arm_on = bool(k % 2)
+            svc.trace_shift = _trace.DEFAULT_SHIFT if arm_on else -1
+            t0 = time.perf_counter()
+            svc.step(now=t)
+            svc._builder.flush()
+            if k >= 2:       # first pair is warmup (leg-1 residue)
+                lat[arm_on].append((time.perf_counter() - t0) * 1e3)
+            t += window_s
+        svc.publisher.flush()
+        p99_on = float(np.percentile(lat[True], 99))
+        p99_off = float(np.percentile(lat[False], 99))
+        out["trace_overhead_on_p99_ms"] = round(p99_on, 2)
+        out["trace_overhead_off_p99_ms"] = round(p99_off, 2)
+        out["trace_overhead_ratio"] = round(p99_on / max(1e-6, p99_off),
+                                            4)
+        out["trace_overhead_steps"] = steps
+        out["trace_overhead_gate_ok"] = \
+            1 if p99_on <= 1.02 * p99_off + 1.0 else 0
+        on_log(f"overhead: on p99 {out['trace_overhead_on_p99_ms']}ms "
+               f"vs off {out['trace_overhead_off_p99_ms']}ms "
+               f"(ratio {out['trace_overhead_ratio']}, gate "
+               f"{'OK' if out['trace_overhead_gate_ok'] else 'FAIL'})")
+    finally:
+        for a in agents:
+            try:
+                a.stop()
+            except Exception:  # noqa: BLE001
+                pass
+        if svc is not None:
+            svc.stop()
+        for a in agents:
+            a.store.close()
+            a.sink.close()
+        store.close()
+        logd.stop()
+        srv.stop()
+    return out
+
+
 def run_partition_ladder(n_jobs=40_000, n_nodes=256, parts=(1, 2, 4),
                          steps=6, window_s=4, on_log=print, device=None):
     """Partitioned scheduler plane ladder: the
@@ -1210,7 +1383,10 @@ def main(argv=None):
                          "10x its fire-rate quota) instead of the "
                          "step/failover bench")
     ap.add_argument("--trace", action="store_true",
-                    help="the trace-plane workload: not ported (exits 2)")
+                    help="run the trace-plane workload (per-stage lag "
+                         "breakdown over a live mini-fleet + the "
+                         "sampling-overhead paired gate) instead of "
+                         "the step/failover bench")
     ap.add_argument("--traced-jobs", type=int, default=64)
     ap.add_argument("--n-tenants", type=int, default=6)
     ap.add_argument("--victim-jobs", type=int, default=400)
@@ -1239,9 +1415,6 @@ def main(argv=None):
                     help="torch device of the planners (default: the card; "
                          "'cpu' runs the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.trace:
-        print(f"bench_sched: {TRACE_REFUSAL}", file=sys.stderr)
-        return 2
     dev = resolve_device(args.device)
     on_log = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
     if args.partition_ladder:
@@ -1256,6 +1429,11 @@ def main(argv=None):
         res = run_herd_bench(
             args.jobs, args.nodes, jitter=args.jitter, on_log=on_log,
             device=dev)
+    elif args.trace:
+        res = run_trace_bench(
+            args.jobs, args.nodes, steps=args.steps,
+            window_s=args.window, traced_jobs=args.traced_jobs,
+            seconds=args.seconds, on_log=on_log, device=dev)
     elif args.tenants:
         res = run_tenant_bench(
             n_tenants=args.n_tenants, victim_jobs=args.victim_jobs,

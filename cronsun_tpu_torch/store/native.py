@@ -1,12 +1,13 @@
-"""The native (C++) coordination store, ``native/cronsun-stored``, as a
-child process.
+"""The native (C++) servers, ``native/cronsun-stored`` and
+``native/cronsun-logd``, as child processes.
 
 ``native/stored.cc`` speaks the wire protocol of
 :class:`~cronsun_tpu_torch.store.remote.StoreServer` with memstore
 semantics.  This is the part of ``cronsun_tpu/store/native.py`` and
-``cronsun_tpu/native_launcher.py`` that the port's benches use: locate or
-build the binary, spawn it on a free port with ``--die-with-parent``, read
-its READY line, stop it.
+``cronsun_tpu/native_launcher.py`` that the port's benches and drills use:
+locate or build a binary, spawn it on a free port with
+``--die-with-parent``, read its READY line, stop it.  The result store's
+launcher (:mod:`cronsun_tpu_torch.logsink.native`) is built on it.
 """
 
 from __future__ import annotations
@@ -26,30 +27,32 @@ NAME = "cronsun-stored"
 READY_TIMEOUT_S = 10.0
 
 
-def find_binary() -> Optional[str]:
-    """``$CRONSUN_STORED``, then ``native/cronsun-stored`` (built with
-    ``make`` when it is missing or older than its sources), then
-    ``$PATH``; None when none of them is there."""
-    env = os.environ.get("CRONSUN_STORED")
+def find_binary(name: str = NAME,
+                env_var: str = "CRONSUN_STORED") -> Optional[str]:
+    """``$<env_var>``, then ``native/<name>`` (built with ``make`` when it
+    is missing or older than its sources), then ``$PATH``; None when none
+    of them is there.  ``cronsun-stored`` unless ``name`` says otherwise."""
+    env = os.environ.get(env_var)
     if env and os.access(env, os.X_OK):
         return env
-    cand = NATIVE_DIR / NAME
-    srcs = [NATIVE_DIR / "stored.cc", NATIVE_DIR / "njson.h"]
+    cand = NATIVE_DIR / name
+    srcs = [NATIVE_DIR / f"{name.split('-', 1)[1]}.cc",
+            NATIVE_DIR / "njson.h"]
     if srcs[0].exists() and (not cand.exists() or any(
             s.exists() and cand.stat().st_mtime < s.stat().st_mtime
             for s in srcs)):
         try:
-            subprocess.run(["make", "-C", str(NATIVE_DIR), NAME],
+            subprocess.run(["make", "-C", str(NATIVE_DIR), name],
                            check=True, capture_output=True, timeout=120)
         except (subprocess.SubprocessError, OSError) as e:
-            log.warnf("native build of %s failed: %s", NAME, e)
+            log.warnf("native build of %s failed: %s", name, e)
     if cand.exists() and os.access(cand, os.X_OK):
         return str(cand)
-    return shutil.which(NAME)
+    return shutil.which(name)
 
 
-class NativeStoreServer:
-    """``cronsun-stored`` serving on the loopback at a free port (``host``
+class NativeServer:
+    """A native server serving on the loopback at a free port (``host``
     and ``port`` as its READY line gives them) until :meth:`stop`."""
 
     def __init__(self, binary: str):
@@ -58,6 +61,7 @@ class NativeStoreServer:
             [binary, "--host", "127.0.0.1", "--port", "0",
              "--die-with-parent"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._name = os.path.basename(binary)
         addr = self._read_ready().split(" ", 1)[1]
         self.host, port = addr.rsplit(":", 1)
         self.port = int(port)
@@ -77,8 +81,8 @@ class NativeStoreServer:
             if line.startswith("READY "):
                 return line.strip()
         self.stop()
-        raise RuntimeError(f"{NAME} did not start within {READY_TIMEOUT_S}s:"
-                           f" {''.join(lines).strip()!r}")
+        raise RuntimeError(f"{self._name} did not start within "
+                           f"{READY_TIMEOUT_S}s: {''.join(lines).strip()!r}")
 
     def stop(self) -> None:
         if self._proc.poll() is None:
@@ -89,3 +93,7 @@ class NativeStoreServer:
                 self._proc.kill()
                 self._proc.wait()
         self._proc.stdout.close()
+
+
+# ``cronsun-stored`` with its default flags
+NativeStoreServer = NativeServer

@@ -460,6 +460,10 @@ class RemoteStore:
         self._closed = False
         self._sock: Optional[socket.socket] = None
         self._rfile = None
+        # sockets whose reader saw the peer close them before _connect
+        # published them; _sock_mu orders that against the publication
+        self._sock_mu = threading.Lock()
+        self._stillborn: set = set()
         # optional hook for replica-group clients (reconnect=False):
         # called once, with this store, when the connection dies
         # UNEXPECTEDLY — the group wrapper marks live watchers lost so
@@ -505,9 +509,26 @@ class RemoteStore:
                 # hit the server's first-frame-must-auth rule and get
                 # the fresh connection closed under us (reconnect churn
                 # on every heal)
-                self._call("auth", self._token, sock_override=sock)
-        self._sock = sock
-        self._rfile = rfile
+                try:
+                    self._call("auth", self._token, sock_override=sock)
+                except RemoteStoreError:
+                    with self._sock_mu:
+                        self._stillborn.discard(sock)
+                    raise
+        with self._sock_mu:
+            if sock in self._stillborn:
+                # a peer that accepts and drops at once (a server going
+                # down, a severing proxy) closed the connection while it
+                # was being set up, and its reader has exited: published,
+                # the dead socket would fail every call ("send failed")
+                # with no reader left to heal it.  The caller retries
+                # (the heal's backoff loop) or sees the failed connect.
+                self._stillborn.discard(sock)
+                sock.close()
+                raise OSError("connection closed by the peer while "
+                              "connecting")
+            self._sock = sock
+            self._rfile = rfile
 
     def _handshake_rpc(self, sock, rfile):
         """One blocking auth round trip on the freshly wrapped TLS
@@ -567,12 +588,18 @@ class RemoteStore:
         # fast instead of sendall-ing into a dead TCP buffer and waiting
         # out the full rpc timeout with no reader left to fail them),
         # then fail in-flight calls
-        if self._sock is sock:
-            self._sock = None
+        with self._sock_mu:
+            published = self._sock is sock
+            if published:
+                self._sock = None
+            elif not self._closed:
+                self._stillborn.add(sock)   # _connect has not published it
         for rid, ev in list(self._pending_ev.items()):
             self._pending.setdefault(rid, {"e": "connection closed",
                                            "k": "RemoteStoreError"})
             ev.set()
+        if not published and not self._closed:
+            return              # the connecting thread owns the retry
         if self._closed or not self._reconnect:
             unexpected = not self._closed
             self._finalize()

@@ -12,7 +12,7 @@ from cronsun_tpu.ops.planner import _compact as jax_compact
 from cronsun_tpu_torch.ops import assign as tas
 from cronsun_tpu_torch.ops.eligibility import pack_bitmask
 from cronsun_tpu_torch.ops.planner import _compact
-from torch_parity import bits
+from torch_parity import bits, one_torch_thread  # noqa: F401
 
 
 def _bucket(seed, K, N, density=0.5, cap=6, fire_p=0.8, excl_p=0.6):

@@ -6,9 +6,12 @@ the same arguments: once as the JAX script's function, once as
 their store backend the same way (the native store when it is there).  The
 two outputs must have the same key names, and be equal on every key that
 counts fires, orders, keys, stage sizes or divergence (each test names
-them); timings differ and are not compared.
+them); timings differ and are not compared.  ``--trace`` runs the trace
+bench (its refusal, exit 2, went when the port gained node agents and a
+result store).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -169,15 +172,51 @@ def test_step_and_failover_bench_matches_the_jax_script(monkeypatch):
     assert got["sched_dispatches_per_step"] > 0
 
 
+TRACE_KEYS = ("trace_bench_backend", "trace_bench_jobs",
+              "trace_bench_nodes", "trace_overhead_steps")
+TRACE_STAGES = ("publish", "claim", "queue", "run", "record")
+
+
+def test_trace_bench_matches_the_jax_script():
+    """The trace-plane bench at ``tests/test_bench_smoke.py``'s tier-1
+    size in both packages: the same keys, every wire stage of the
+    waterfall present and non-negative, both overhead arms measured.
+    Stage latencies and the overhead ratio are timings: not compared."""
+    ref, got = both("run_trace_bench", 120, n_jobs=800, n_nodes=32,
+                    steps=4, window_s=2, traced_jobs=12, seconds=4)
+    assert_same(ref, got, TRACE_KEYS)
+    for res in (ref, got):
+        assert res["trace_stage_fires"] > 0
+        stages = res["trace_stage_p99_ms"]
+        for st in TRACE_STAGES:
+            assert st in stages, f"stage {st} missing from {stages}"
+            assert stages[st] >= 0.0
+        assert res["trace_overhead_on_p99_ms"] > 0
+        assert res["trace_overhead_off_p99_ms"] > 0
+        assert res["trace_overhead_gate_ok"] in (0, 1)
+    assert set(got["trace_stage_p99_ms"]) >= set(TRACE_STAGES)
+
+
 def test_trace_mode_exits_2_and_says_why():
+    """``--trace`` was refused (exit 2) until the port had node agents
+    and a result store; it now runs the trace bench, so this checks that
+    ``--trace --device cpu`` exits 0 and prints the trace bench's keys."""
     r = subprocess.run(
         [sys.executable, "-m", "cronsun_tpu_torch.scripts.bench_sched",
-         "--trace", "--device", "cpu"], cwd=ROOT, capture_output=True,
-        text=True, timeout=60)
-    assert r.returncode == 2, r.stderr
-    assert r.stdout == ""
-    assert "--trace is not ported" in r.stderr
-    assert "13b" in r.stderr
+         "--trace", "--device", "cpu", "--jobs", "400", "--nodes", "32",
+         "--steps", "2", "--window", "2", "--traced-jobs", "6",
+         "--seconds", "3"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout)
+    assert set(out) >= {"trace_stage_fires", "trace_stage_p99_ms",
+                        "trace_overhead_on_p99_ms",
+                        "trace_overhead_off_p99_ms",
+                        "trace_overhead_ratio", "trace_overhead_gate_ok",
+                        *TRACE_KEYS}
+    assert out["trace_bench_jobs"] == 400
+    assert out["trace_stage_fires"] > 0
+    assert "stage p99s over" in r.stderr
 
 
 def test_port_script_names_the_no_card_error(monkeypatch):

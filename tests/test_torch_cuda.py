@@ -423,3 +423,40 @@ def test_fair_shares_non_dyadic_weights_on_the_card_match_the_cpu(cuda, T):
                                 torch.tensor(cap, device=dev)).cpu()
                     for dev in (cuda, torch.device("cpu")))
         assert torch.equal(got, ref), (i, d, w, cap)
+
+
+def test_smoke_drill_on_the_card_launches_k1_with_no_finding(cuda,
+                                                             monkeypatch):
+    """``bench_chaos``'s smoke drill with its schedulers on the card: no
+    invariant finding, the faults injected, and the exclusive bid kernel
+    launched by the drill's planners."""
+    from cronsun_tpu_torch.scripts import bench_chaos
+    monkeypatch.setenv("CRONSUN_CHAOS", "1")
+    bench_chaos.warm_device(cuda)
+    k.reset_launch_counts()
+    res = bench_chaos.drill_smoke(seed=5, on_log=lambda *a: None,
+                                  device=cuda)
+    counts = k.launch_counts()
+    assert res["findings"] == [], res["findings"]
+    assert res["info"]["schedule_deterministic"]
+    assert res["info"]["executions"] > 0
+    assert res["info"]["injected"]["store.rpc:reply_lost"] > 0
+    assert counts["bid_argmin"] > 0 and counts["fanout_add"] > 0, counts
+
+
+def test_trace_bench_on_the_card_at_the_tier1_size(cuda):
+    """``run_trace_bench`` at ``tests/test_bench_smoke.py``'s tier-1 size
+    with the scheduler on the card: every wire stage of the waterfall,
+    both overhead arms, both kernels launched."""
+    from cronsun_tpu_torch.scripts import bench_sched
+    k.reset_launch_counts()
+    res = bench_sched.run_trace_bench(
+        n_jobs=800, n_nodes=32, steps=4, window_s=2, traced_jobs=12,
+        seconds=4, on_log=lambda *a: None, device=cuda)
+    counts = k.launch_counts()
+    assert res["trace_stage_fires"] > 0
+    for st in ("publish", "claim", "queue", "run", "record"):
+        assert res["trace_stage_p99_ms"][st] >= 0.0, st
+    assert res["trace_overhead_on_p99_ms"] > 0
+    assert res["trace_overhead_off_p99_ms"] > 0
+    assert counts["bid_argmin"] > 0 and counts["fanout_add"] > 0, counts

@@ -19,7 +19,8 @@ from cronsun_tpu_torch.ops.schedule_table import (
     DEP_BROKEN, DEP_EMPTY, FRAMEWORK_EPOCH, MAX_DEPS, _rows_to_numpy,
     make_dep_row, make_row, table_from_numpy)
 from cronsun_tpu_torch.synth import synth_state
-from torch_parity import PlannerPair, assert_plans_equal, jax_table
+from torch_parity import (PlannerPair, assert_plans_equal, jax_table,  # noqa: F401
+                          one_torch_thread)
 
 T0 = 1_753_000_000          # a safely modern epoch, mid-minute
 NEVER_CRON = "0 0 0 29 2 ?"  # Feb 29 midnight: never fires in a test

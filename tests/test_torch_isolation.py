@@ -40,7 +40,17 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.parallel.collectives, "
             "cronsun_tpu_torch.store.native, cronsun_tpu_torch.scripts, "
             "cronsun_tpu_torch.scripts.bench_sched, "
-            "cronsun_tpu_torch.scripts.bench_mesh; "
+            "cronsun_tpu_torch.scripts.bench_mesh, "
+            "cronsun_tpu_torch.chaos.faultproxy, "
+            "cronsun_tpu_torch.chaos.invariants, cronsun_tpu_torch.logsink, "
+            "cronsun_tpu_torch.logsink.joblog, "
+            "cronsun_tpu_torch.logsink.tiering, "
+            "cronsun_tpu_torch.logsink.traces, "
+            "cronsun_tpu_torch.logsink.serve, "
+            "cronsun_tpu_torch.logsink.native, cronsun_tpu_torch.node, "
+            "cronsun_tpu_torch.node.executor, cronsun_tpu_torch.node.agent, "
+            "cronsun_tpu_torch.repl.log, cronsun_tpu_torch.repl.manager, "
+            "cronsun_tpu_torch.scripts.bench_chaos; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")

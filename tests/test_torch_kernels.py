@@ -21,7 +21,7 @@ from cronsun_tpu_torch.ops import kernels
 from cronsun_tpu_torch.ops.kernels import (
     _tie, bid_argmin, bid_block_plain, fanout_add, fanout_chunks)
 from torch_k1_model import k1_model, tie_from_bits
-from torch_parity import bits
+from torch_parity import bits, one_torch_thread  # noqa: F401
 
 
 def _tile(seed, K, w32, n_loads=4, empty=(7,)):

@@ -17,6 +17,7 @@ from cronsun_tpu.bin import sched as jax_sched
 from cronsun_tpu_torch import conf as port_conf
 from cronsun_tpu_torch import entry as port_entry
 from cronsun_tpu_torch.bin import sched as port_sched
+from torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

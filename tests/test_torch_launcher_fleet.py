@@ -23,6 +23,7 @@ from cronsun_tpu.core import Keyspace
 from cronsun_tpu.core.models import Job, JobRule
 from cronsun_tpu.logsink import JobLogStore
 from cronsun_tpu.store.remote import RemoteStore
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_SCHED = "cronsun_tpu_torch.bin.sched"

@@ -54,3 +54,40 @@ def test_the_native_store_serves_the_port_client():
     finally:
         srv.stop()
     assert srv._proc.returncode is not None
+
+
+# ---- the result store's launcher (cronsun_tpu_torch.logsink.native) ------
+
+def test_logd_launcher_takes_the_env_override_and_reads_ready(
+        monkeypatch, tmp_path):
+    from cronsun_tpu_torch.logsink import native as logd_native
+    fake = _script(tmp_path / "logd", "echo READY 127.0.0.1:7321\n"
+                                      "exec sleep 60\n")
+    monkeypatch.setenv("CRONSUN_LOGD", fake)
+    assert logd_native.find_binary() == fake
+    srv = logd_native.NativeLogSinkServer()
+    assert (srv.host, srv.port) == ("127.0.0.1", 7321)
+    srv.stop()
+    assert srv._proc.returncode is not None
+
+
+def test_the_native_logd_serves_the_port_result_store_client():
+    from cronsun_tpu_torch.logsink import native as logd_native
+    from cronsun_tpu_torch.logsink import LogRecord
+    from cronsun_tpu_torch.logsink.serve import RemoteJobLogStore
+    binary = logd_native.find_binary()
+    if binary is None or not os.access(binary, os.X_OK):
+        pytest.skip("native/cronsun-logd neither built nor buildable")
+    srv = logd_native.NativeLogSinkServer(binary)
+    try:
+        sink = RemoteJobLogStore(srv.host, srv.port, timeout=30)
+        sink.create_job_logs([LogRecord(
+            job_id="j", job_group="default", name="j", node="n", user="",
+            command="true", output="ok", success=True, begin_ts=1.0,
+            end_ts=2.0)], idem="t1")
+        assert sink.stat_overall()["total"] == 1
+        assert sink.query_logs(job_ids=["j"])[1] == 1
+        sink.close()
+    finally:
+        srv.stop()
+    assert srv._proc.returncode is not None

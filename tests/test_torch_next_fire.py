@@ -23,6 +23,7 @@ from cronsun_tpu_torch.ops import next_fire, tick
 from cronsun_tpu_torch.ops import schedule_table as tst
 from cronsun_tpu_torch.ops.tick import first_fire_offset, next_fire_one
 from cronsun_tpu_torch.synth import bench_mixed_specs
+from torch_parity import one_torch_thread  # noqa: F401
 
 UTC = timezone.utc
 NY = ZoneInfo("America/New_York")

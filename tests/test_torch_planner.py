@@ -13,8 +13,8 @@ from cronsun_tpu_torch.ops.eligibility import EligibilityBuilder, NodeUniverse
 from cronsun_tpu_torch.ops.planner import TickPlanner, _AdaptiveBucket
 from cronsun_tpu_torch.ops.schedule_table import build_table, make_row
 from cronsun_tpu_torch.synth import synth_state
-from torch_parity import (assert_plans_equal, assert_state_equal,
-                          jax_planner_from_state)
+from torch_parity import (assert_plans_equal, assert_state_equal,  # noqa: F401
+                          jax_planner_from_state, one_torch_thread)
 
 T0 = 1_753_000_000
 J, N = 4096, 320

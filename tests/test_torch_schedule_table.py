@@ -10,6 +10,7 @@ from cronsun_tpu.ops import schedule_table as jst
 from cronsun_tpu_torch.convert import planner_from_numpy, planner_to_numpy
 from cronsun_tpu_torch.ops import schedule_table as tst
 from cronsun_tpu_torch.synth import MIXED_SPECS, synth_state
+from torch_parity import one_torch_thread  # noqa: F401
 
 _FIELDS = ["*", "*/5", "0", "1-5", "10-20/3", "3,7,11", "?"]
 

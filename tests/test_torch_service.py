@@ -25,6 +25,7 @@ from cronsun_tpu.store import MemStore
 from cronsun_tpu_torch.ops.planner import TickPlanner as PortPlanner
 from cronsun_tpu_torch.sched import SchedulerService as PortService
 from cronsun_tpu_torch.synth import seed_service_store
+from torch_parity import one_torch_thread  # noqa: F401
 
 KS = Keyspace()
 NOW = 1_753_000_000          # :40 — eight 4 s windows cross a minute

@@ -26,6 +26,7 @@ from cronsun_tpu.sched import SchedulerService as JaxService
 from cronsun_tpu.store import MemStore
 from cronsun_tpu_torch.sched import SchedulerService as PortService
 from cronsun_tpu_torch.synth import seed_service_store
+from torch_parity import one_torch_thread  # noqa: F401
 
 KS = Keyspace()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

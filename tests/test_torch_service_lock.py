@@ -22,6 +22,7 @@ import numpy as np
 
 from cronsun_tpu_torch.ops.planner import TickPlanner
 from cronsun_tpu_torch.ops.schedule_table import make_row
+from torch_parity import one_torch_thread  # noqa: F401
 
 J, N, W, K = 128, 64, 8, 128
 WINDOWS = 40

@@ -19,7 +19,8 @@ from cronsun_tpu_torch.ops.tenancy import (
     ReferenceAdmission, TenantOrder, fair_shares, reference_max_min,
     select_fair, tenant_order, weighted_max_min)
 from cronsun_tpu_torch.synth import arm_mixed, completions, synth_state
-from torch_parity import PlannerPair, assert_plans_equal
+from torch_parity import (PlannerPair, assert_plans_equal,  # noqa: F401
+                          one_torch_thread)
 
 T0 = 1_753_000_000
 

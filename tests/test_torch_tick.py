@@ -15,7 +15,7 @@ from cronsun_tpu.ops.tick import fire_mask as jax_fire_mask
 from cronsun_tpu_torch.ops import schedule_table as tst
 from cronsun_tpu_torch.ops.tick import fire_mask
 from cronsun_tpu_torch.synth import synth_state
-from torch_parity import jax_table
+from torch_parity import jax_table, one_torch_thread  # noqa: F401
 
 UTC = timezone.utc
 
