@@ -168,6 +168,36 @@ Phases, each printing one JSON line:
    claim, queue, run, record) present and non-negative, both overhead arms
    measured, K1 and K2 launched; the reference's overhead gate (< 2 % + 1
    ms of step p99) is printed, not held.
+25. process_fleet — a deployment of the port's processes only, each
+   ``python3 -m cronsun_tpu_torch.bin.<role>``: ``store --shards 2
+   --wal`` (Python backend), ``logd --shards 2`` (the agents and the web
+   get the comma-joined shard set, so the sharded sink is on the path),
+   ``sched`` on the card, two ``node`` agents and ``web`` with its HTTP
+   noticer pointed at a receiver in this script.  Before the scheduler
+   starts the store is seeded through a client with the trace bench's
+   deployment (``PROCESS_FLEET_JOBS`` x ``PROCESS_FLEET_NODES`` phantom
+   nodes, registered with no agent).  A per-second Common, Alone and
+   Interval job on both agents are created through the REST API and
+   driven ``PROCESS_FLEET_LIVE_S`` seconds from the first execution
+   ``/v1/stream`` shows.  Held: the compute apps nvidia-smi lists hold
+   more MiB than before the fleet, and of the fleet's pids only the
+   scheduler's holds the card's device file open (its CUDA context; the
+   chip machine's nvidia-smi shows every pid as 1), both agents connected at ``/v1/nodes``,
+   scheduler steps at ``/v1/metrics``; after a SIGKILL of one agent,
+   ``/v1/nodes`` shows it disconnected and its node-down alert reaches
+   the receiver within ``node_ttl`` + 5 s; SIGTERM stops every other
+   process with exit 0, the scheduler logging K1 and K2 launches; up to
+   the crash each (job, second) of the Interval job ran once across the
+   agents, the Alone job's at most once (a fire its previous run's
+   fleet-wide lock still holds is skipped, as in the reference; counted)
+   and the Common job on both every second;
+   ``/v1/logs``' total equals the sharded sink's; no local ``log_db``.
+   Printed: each process's READY seconds, the seed seconds, the
+   scheduler's step p50/p99, the web's p50/p99 over
+   ``PROCESS_FLEET_WEB_REQUESTS`` requests each of ``/v1/logs``,
+   ``/v1/nodes`` and ``/v1/metrics``, executions, the alert's delay,
+   the card's used MiB before and after.  Process logs go to
+   ``chiprun_out/fleet_<name>.log``.
 
 Then each phase's seconds, the kernels line, the nvidia-smi line, and as
 the last line
@@ -179,6 +209,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -1552,31 +1583,29 @@ def phase_service(dev, check_windows=SERVICE_CHECK_WINDOWS,
     return counts
 
 
-class SchedProc:
-    """One ``python3 -m cronsun_tpu_torch.bin.sched`` process on the card
-    (no ``--device``; ``extra`` flags appended): its output is drained into
-    ``lines``, ``ready_s`` is its seconds from spawn to ``READY``."""
+class Proc:
+    """One ``python3 -m <mod>`` process (``args`` its flags, ``name`` its
+    log's name, else ``mod``): its output is drained into ``lines``,
+    ``ready_s`` is its seconds from spawn to ``READY``."""
 
-    def __init__(self, addr, conf, node_id, *extra):
-        import threading
-        self.node_id = node_id
+    def __init__(self, mod, *args, name=None):
+        self.mod, self.node_id = mod, name or mod
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
         self._t0 = time.perf_counter()
         self.p = subprocess.Popen(
-            [sys.executable, "-m", "cronsun_tpu_torch.bin.sched",
-             "--store", addr, "--conf", conf, "--node-id", node_id, *extra],
-            cwd=HERE, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        self.lines, self.ready_s = [], None
+            [sys.executable, "-m", mod, *args], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines, self.ready_s, self._ready = [], None, None
         self._reader = threading.Thread(target=self._drain, daemon=True)
         self._reader.start()
 
     def _drain(self):
         for line in self.p.stdout:
             if self.ready_s is None and line.startswith("READY"):
+                self._ready = line.split(None, 1)[1].strip()
                 self.ready_s = time.perf_counter() - self._t0
             self.lines.append(line)
 
@@ -1585,8 +1614,29 @@ class SchedProc:
             raise AssertionError(f"{self.node_id} exited rc {self.p.returncode}:"
                                  f"\n{''.join(self.lines[-40:])}")
 
-    def stop(self, sig, timeout=60.0) -> int:
-        import signal
+    def ready(self, timeout=120) -> str:
+        """What the ``READY`` line says, once it came and the process
+        still runs."""
+        deadline = time.perf_counter() + timeout
+        while self.ready_s is None:
+            self.check_alive()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{self.node_id}: no READY within "
+                                     f"{timeout} s:\n{self.output()}")
+            time.sleep(0.05)
+        self.check_alive()
+        return self._ready
+
+    def output(self) -> str:
+        return "".join(self.lines)
+
+    def wait(self, timeout=30) -> int:
+        rc = self.p.wait(timeout=timeout)
+        self._reader.join(timeout)
+        return rc
+
+    def stop(self, sig=signal.SIGTERM, timeout=60.0) -> int:
+        """Signal ``sig``, then the exit code (SIGKILL past ``timeout``)."""
         if self.p.poll() is None:
             self.p.send_signal(sig)
         try:
@@ -1599,11 +1649,26 @@ class SchedProc:
         self._reader.join(timeout)
         return rc
 
-    def save_log(self):
+    def save_log(self, prefix="launcher"):
         os.makedirs(OUT_DIR, exist_ok=True)
-        with open(os.path.join(OUT_DIR, f"launcher_{self.node_id}.log"),
+        with open(os.path.join(OUT_DIR, f"{prefix}_{self.node_id}.log"),
                   "w") as f:
             f.writelines(self.lines)
+
+
+def port_proc(role, name, *args) -> Proc:
+    """``python3 -m cronsun_tpu_torch.bin.<role>``."""
+    return Proc(f"cronsun_tpu_torch.bin.{role}", *args, name=name)
+
+
+class SchedProc(Proc):
+    """A scheduler process on the card (no ``--device``; ``extra`` flags
+    appended)."""
+
+    def __init__(self, addr, conf, node_id, *extra):
+        super().__init__("cronsun_tpu_torch.bin.sched", "--store", addr,
+                         "--conf", conf, "--node-id", node_id, *extra,
+                         name=node_id)
 
 
 class WatchedAgents:
@@ -2745,6 +2810,404 @@ def phase_sched_trace(dev):
         check)
 
 
+PROCESS_FLEET_JOBS = 50_000    # scripts/bench_sched.py:886-887, the trace
+PROCESS_FLEET_NODES = 512      # bench's deployment
+PROCESS_FLEET_LIVE_S = 20
+PROCESS_FLEET_NODE_TTL = 5     # tests/test_multiprocess.py's
+PROCESS_FLEET_WEB_REQUESTS = 50
+FLEET_JOBS = {"pf-common": 0, "pf-alone": 1, "pf-interval": 2}
+
+
+def compute_apps() -> list:
+    """[(pid, MiB)] as nvidia-smi lists the compute apps on the card.  On
+    the chip machine the pids are of another namespace (every process of
+    the container shows as pid 1), so only the MiB say something here."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    out = []
+    for ln in r.stdout.strip().splitlines():
+        pid, _, mib = ln.partition(",")
+        if pid.strip().isdigit():
+            out.append((int(pid), float(mib.strip() or 0)))
+    return out
+
+
+def card_device_files(pid) -> list:
+    """The card device files (``/dev/nvidia<N>``) that ``pid`` holds open:
+    a process holds its card's once it has a CUDA context on it.  The
+    chip machine's nvidia-smi lists compute apps by pids of another
+    namespace, so this is how a fleet process is matched to a context."""
+    import re
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            out.add(target)
+    return sorted(out)
+
+
+def card_mib_used() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    return float(r.stdout.strip().splitlines()[0])
+
+
+class Receiver:
+    """An HTTP noticer's target on the loopback: every POSTed JSON body as
+    (arrival time, path, Content-Type, body), in arrival order."""
+
+    def __init__(self):
+        import http.server
+        got = self.posts = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                got.append((time.perf_counter(), self.path,
+                            self.headers.get("Content-Type"),
+                            json.loads(self.rfile.read(n))))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_port}/"
+        self._thread = threading.Thread(target=self.srv.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def bodies(self, path="/"):
+        return [b for _t, p, _c, b in self.posts if p == path]
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self._thread.join(10)
+
+
+class WebClient:
+    """A logged-in session against a fleet's web process."""
+
+    def __init__(self, addr, email="admin@admin.com", password="admin"):
+        import http.cookiejar
+        import urllib.parse
+        import urllib.request
+        self.base = f"http://{addr}"
+        self.op = urllib.request.build_opener(
+            urllib.request.HTTPCookieProcessor(http.cookiejar.CookieJar()))
+        q = urllib.parse.urlencode({"email": email, "password": password})
+        with self.op.open(f"{self.base}/v1/session?{q}", timeout=30) as r:
+            r.read()
+
+    def call(self, method, path, body=None):
+        import urllib.request
+        req = urllib.request.Request(
+            self.base + path, method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with self.op.open(req, timeout=30) as r:
+            raw = r.read()
+            json_body = "json" in r.headers.get("Content-Type", "")
+        return json.loads(raw) if json_body and raw else raw.decode()
+
+
+class SseWatch:
+    """One ``/v1/stream`` viewer: the seconds from its start to the first
+    event of one of ``jobs``."""
+
+    def __init__(self, web, jobs):
+        import threading
+        self.jobs, self.first, self.events, self.error = jobs, None, 0, None
+        self._t0 = time.perf_counter()
+        self._resp = web.op.open(web.base + "/v1/stream", timeout=60)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        try:
+            for raw in self._resp:
+                line = raw.decode().strip()
+                if not line.startswith("data:"):
+                    continue
+                self.events += 1
+                ev = json.loads(line[5:])
+                if ev.get("jobId") in self.jobs:
+                    self.first = (time.perf_counter() - self._t0, ev)
+                    return
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.error = e
+
+    def close(self):
+        self._resp.close()
+        self._thread.join(10)
+
+
+def _fleet_records(sink, job):
+    """Every record of ``job`` in the result store, paged."""
+    out, page = [], 1
+    while True:
+        recs, total = sink.query_logs(job_ids=[job], page=page, page_size=500)
+        out += recs
+        if not recs or len(out) >= total:
+            return out
+        page += 1
+
+
+def _check_fleet_runs(sink, nodes, lo_cap, t_jobs):
+    """From the first second both agents ran the Common job up to
+    ``lo_cap`` (exclusive; the crash's seconds come after): the Common
+    job ran on both agents every second, the Interval job once a second
+    across them, and the Alone job at most once a second.  An Alone fire
+    is skipped while the job's previous run still holds its fleet-wide
+    lock (reference job.go:87-123; two due seconds claimed together run
+    at once), so its skipped seconds are counted, not failed.  Returns
+    the executions counted."""
+    from collections import Counter
+    runs = {}
+    for job in FLEET_JOBS:
+        recs = _fleet_records(sink, job)
+        if not recs or not all(r.success for r in recs):
+            raise AssertionError(f"process_fleet: {job}: {len(recs)} records, "
+                                 "a failed one or none")
+        runs[job] = [(int(r.output.strip()), r.node) for r in recs]
+    common = runs["pf-common"]
+    lo = max(min(ts for ts, n in common if n == node) for node in nodes)
+    seconds = range(lo, lo_cap)
+    if len(seconds) < 5:
+        raise AssertionError(f"process_fleet: only {len(seconds)} seconds "
+                             f"checked ({lo}..{lo_cap}), the first "
+                             f"{lo - t_jobs:.1f} s after the jobs' PUT")
+    ran = {(ts, n) for ts, n in common}
+    missing = [(ts, n) for ts in seconds for n in nodes if (ts, n) not in ran]
+    if missing:
+        raise AssertionError(f"process_fleet: the Common job missed "
+                             f"{len(missing)} (second, node), e.g. {missing[:4]}")
+    skipped = {}
+    for job in ("pf-alone", "pf-interval"):
+        count = Counter(ts for ts, _ in runs[job])
+        twice = sorted(ts for ts, c in count.items() if c > 1)
+        if twice:
+            raise AssertionError(f"process_fleet: {job} ran twice at "
+                                 f"{twice[:4]}")
+        skipped[job] = [ts for ts in seconds if ts not in count]
+    if skipped["pf-interval"]:
+        raise AssertionError(f"process_fleet: pf-interval never ran at "
+                             f"{len(skipped['pf-interval'])} seconds, e.g. "
+                             f"{skipped['pf-interval'][:4]}")
+    return {"checked_seconds": [lo, lo_cap],
+            "alone_skipped_seconds": len(skipped["pf-alone"]),
+            "first_run_after_put_s": lo - t_jobs,
+            **{job: len(r) for job, r in runs.items()}}
+
+
+def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
+                        live_s=PROCESS_FLEET_LIVE_S,
+                        node_ttl=PROCESS_FLEET_NODE_TTL,
+                        requests=PROCESS_FLEET_WEB_REQUESTS, sched_args=(),
+                        on_card=True):
+    """A fleet of the port's processes around the scheduler on the card
+    (see the module docstring, phase 25).  Returns the scheduler's kernel
+    launch counts.  ``sched_args`` and ``on_card=False`` (``--device cpu``,
+    no nvidia-smi) run it where there is no card."""
+    import shutil
+    import signal
+    import tempfile
+
+    from cronsun_tpu_torch.bin.common import connect_store
+    from cronsun_tpu_torch.core import Keyspace
+    from cronsun_tpu_torch.logsink.sharded import connect_sharded_sink
+    from cronsun_tpu_torch.scripts.bench_sched import seed
+    ks = Keyspace()
+    tmp = tempfile.mkdtemp(prefix="cronsun-fleet-")
+    local_db = os.path.join(tmp, "local-UNUSED.db")
+    nodes = ["pf-node-0", "pf-node-1"]
+    out = {"phase": "process_fleet", "jobs": n_jobs, "nodes": n_nodes,
+           "live_s": live_s, "node_ttl": node_ttl}
+    procs, client, sink, sse = {}, None, None, None
+    recv = Receiver()
+    try:
+        if on_card:
+            apps_before = compute_apps()
+            out["card_mib_before"] = card_mib_used()
+        conf = os.path.join(tmp, "conf.json")
+        with open(conf, "w") as f:
+            json.dump({"log_db": local_db, "window_s": 4, "node_ttl": node_ttl,
+                       "job_capacity": n_jobs + 256,
+                       "node_capacity": n_nodes + 8, "proc_req": 0,
+                       "mail": {"enable": True, "http_api": recv.url}}, f)
+        procs["store"] = port_proc(
+            "store", "store", "--shards", "2", "--port", "0", "--wal",
+            os.path.join(tmp, "store.wal"))
+        procs["logd"] = port_proc(
+            "logd", "logd", "--shards", "2", "--port", "0", "--db",
+            os.path.join(tmp, "logd.db"))
+        store_addr = procs["store"].ready(60)
+        logd_addr = procs["logd"].ready(60)
+
+        # phantom nodes registered without an agent, as in the trace bench
+        t = time.perf_counter()
+        client = connect_store(store_addr)
+        seed(client, ks, n_jobs, n_nodes, lambda m: None)
+        out["seed_s"] = time.perf_counter() - t
+
+        wired = ["--store", store_addr, "--logsink", logd_addr, "--conf", conf]
+        procs["sched"] = SchedProc(store_addr, conf, "pf-sched", *sched_args)
+        for n in nodes:
+            procs[n] = port_proc("node", n, *wired, "--node-id", n)
+        procs["web"] = port_proc("web", "web", *wired, "--port", "0")
+        for name in ("sched", *nodes, "web"):
+            procs[name].ready(300)
+        out["ready_s"] = {k: p.ready_s for k, p in procs.items()}
+
+        web = WebClient(procs["web"].ready())
+        sse = SseWatch(web, set(FLEET_JOBS))
+        for job, kind in FLEET_JOBS.items():
+            web.call("PUT", "/v1/job", {
+                "id": job, "name": job, "kind": kind, "group": "default",
+                "command": "sh -c 'echo $CRONSUN_SCHEDULED_TS'",
+                "rules": [{"timer": "* * * * * *", "nids": nodes}]})
+        t_jobs = time.time()
+        # the live seconds count from the first execution the stream shows
+        deadline = time.perf_counter() + 60
+        while sse.first is None and sse.error is None and \
+                time.perf_counter() < deadline:
+            for p in procs.values():
+                p.check_alive()
+            time.sleep(0.1)
+        if sse.first is None:
+            raise AssertionError(f"process_fleet: no execution event on "
+                                 f"/v1/stream ({sse.events} events, "
+                                 f"{sse.error!r})")
+        out["sse_first_event_s"] = sse.first[0]
+        t_live = time.time()
+        if on_card:
+            time.sleep(min(5.0, live_s / 2))
+            apps = compute_apps()
+            holders = {k: card_device_files(p.p.pid)
+                       for k, p in procs.items()}
+            out["card_contexts"] = {
+                "compute_apps_before": apps_before, "compute_apps": apps,
+                "device_files": {k: v for k, v in holders.items() if v}}
+            if sum(m for _, m in apps) <= sum(m for _, m in apps_before) \
+                    or [k for k, v in holders.items() if v] != ["sched"]:
+                raise AssertionError(
+                    f"process_fleet: CUDA contexts {out['card_contexts']}, "
+                    f"want a new one, held by the scheduler alone")
+        while time.time() < t_live + live_s:
+            for p in procs.values():
+                p.check_alive()
+            time.sleep(0.5)
+
+        listed = {n["id"]: n for n in web.call("GET", "/v1/nodes")}
+        if not all(listed.get(n, {}).get("connected") for n in nodes):
+            raise AssertionError(f"process_fleet: agents not connected: "
+                                 f"{[listed.get(n) for n in nodes]}")
+        metrics = web.call("GET", "/v1/metrics")
+        steps = [ln for ln in metrics.splitlines()
+                 if ln.startswith("cronsun_sched_steps_total{")]
+        if not steps or int(float(steps[0].rsplit(" ", 1)[1])) <= 0 or \
+                "cronsun_sched_tick_p99_ms" not in metrics:
+            raise AssertionError(f"process_fleet: no scheduler steps in "
+                                 f"/v1/metrics: {steps}")
+        lat = {}
+        for path in ("/v1/logs", "/v1/nodes", "/v1/metrics"):
+            ms = []
+            for _ in range(requests):
+                t = time.perf_counter()
+                web.call("GET", path)
+                ms.append((time.perf_counter() - t) * 1e3)
+            lat[path] = {"p50_ms": float(np.percentile(ms, 50)),
+                         "p99_ms": float(np.percentile(ms, 99))}
+        out["web_ms"] = lat
+        snap = json.loads(client.get(ks.metrics_key("sched", "pf-sched")).value)
+        out.update(step_p50_ms=snap.get("sched_step_p50_ms"),
+                   step_p99_ms=snap.get("sched_step_p99_ms"),
+                   tick_p50_ms=snap.get("tick_p50_ms"),
+                   tick_p99_ms=snap.get("tick_p99_ms"))
+
+        # agent crash: the web shows it gone, its noticer pages the receiver
+        t_kill = time.perf_counter()
+        kill_ts = int(time.time())
+        procs["pf-node-1"].stop(signal.SIGKILL)
+        seen_down = alert = None
+        while time.perf_counter() < t_kill + node_ttl + 5:
+            if seen_down is None and not {
+                    n["id"]: n for n in web.call("GET", "/v1/nodes")
+            }["pf-node-1"].get("connected"):
+                seen_down = time.perf_counter() - t_kill
+            alert = next((t for t, _p, _c, n in recv.posts
+                          if "pf-node-1" in n.get("subject", "")), None)
+            if alert is not None and seen_down is not None:
+                break
+            time.sleep(0.1)
+        if alert is None or seen_down is None:
+            raise AssertionError(
+                f"process_fleet: after the SIGKILL, disconnected at "
+                f"{seen_down} s, alert {alert} (notices {recv.bodies()})")
+        out.update(disconnected_after_s=seen_down, alert_delay_s=alert - t_kill)
+
+        # shutdown: the scheduler first, with its launch counts
+        rcs = {"pf-node-1": "SIGKILL"}
+        rcs["sched"] = procs["sched"].stop(signal.SIGTERM)
+        line = [ln for ln in procs["sched"].lines
+                if "kernel launch counts:" in ln]
+        if rcs["sched"] != 0 or not line:
+            raise AssertionError(f"process_fleet: the scheduler exited "
+                                 f"{rcs['sched']}:\n"
+                                 f"{''.join(procs['sched'].lines[-40:])}")
+        counts = json.loads(line[-1].split("kernel launch counts:", 1)[1])
+        if on_card and not all(counts.get(n) for n in SINGLE_DEVICE_KERNELS):
+            raise AssertionError(f"a kernel never launched in the fleet's "
+                                 f"scheduler: {counts}")
+        rcs["pf-node-0"] = procs["pf-node-0"].stop(signal.SIGTERM)
+        sink = connect_sharded_sink(logd_addr.split(","))
+        out["executions"] = _check_fleet_runs(sink, nodes, kill_ts - 2, t_jobs)
+        api_total = web.call("GET", "/v1/logs")["total"]
+        sink_total = sink.stat_overall()["total"]
+        if api_total != sink_total or sink.query_logs()[1] != sink_total:
+            raise AssertionError(f"process_fleet: /v1/logs total {api_total}"
+                                 f", the sink's {sink_total}")
+        out["executions_total"] = sink_total
+        sse.close()
+        sse = None
+        for name in ("web", "logd", "store"):
+            rcs[name] = procs[name].stop(signal.SIGTERM)
+        out["exit_codes"] = rcs
+        if any(rc != 0 for k, rc in rcs.items() if k != "pf-node-1"):
+            raise AssertionError(f"process_fleet: exit codes {rcs}")
+        if os.path.exists(local_db):
+            raise AssertionError("process_fleet: a process wrote the local "
+                                 "log_db")
+        out["launches_process_fleet"] = counts
+        if on_card:
+            out["card_mib_after"] = card_mib_used()
+            out["nvidia_smi"] = nvidia_smi_line()
+    finally:
+        if sse is not None:
+            sse.close()
+        for p in procs.values():
+            p.stop(signal.SIGKILL, timeout=30)
+            p.save_log("fleet")
+        for c in (client, sink):
+            if c is not None:
+                c.close()
+        recv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
@@ -2788,6 +3251,7 @@ def main(argv=None) -> int:
         ("sched_herd", phase_sched_herd), ("mesh_ladder", phase_mesh_ladder),
         ("chaos_drills", phase_chaos_drills),
         ("sched_trace", phase_sched_trace))}
+    fleet = timed("process_fleet", phase_process_fleet)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     bench_checks = [t for _, checked in benches.values() for t in checked]
     for r in rows:
@@ -2799,6 +3263,7 @@ def main(argv=None) -> int:
         r["launches_mesh_launcher"] = mesh_launcher.get(r["name"], 0)
         for phase, (c, _) in benches.items():
             r[f"launches_{phase}"] = c[r["name"]]
+        r["launches_process_fleet"] = fleet.get(r["name"], 0)
         if r["name"] == "bid_argmin_natural":
             # K1n's path is the 2-D mesh: its launches are that run's
             r["launches"] = mesh["2d_2x2"][r["name"]]

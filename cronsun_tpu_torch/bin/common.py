@@ -1,9 +1,9 @@
 """Shared entrypoint wiring: flags, conf, logging, store connection.
 
 Copy of ``cronsun_tpu/bin/common.py`` without ``enable_compile_cache``
-(an XLA cache; the port builds its kernels with ``ops._build``),
-``server_tls`` and ``make_sink``, which only the store and result-store
-processes call.
+(an XLA cache; the port builds its kernels with ``ops._build``).
+``server_tls`` serves the store and result-store processes, ``make_sink``
+the agent and web processes.
 """
 
 from __future__ import annotations
@@ -48,6 +48,21 @@ def setup_common(args) -> Tuple[Config, Keyspace, Optional[ConfigWatcher]]:
     return cfg, Keyspace(cfg.prefix), watcher
 
 
+def server_tls(tls, native: bool, daemon: str):
+    """Server-side TLS context from a conf section, or None (plaintext).
+    The native servers cannot terminate TLS — exits 2 with the
+    terminator hint rather than silently serving plaintext."""
+    import sys
+    from ..tlsutil import server_context
+    ctx = server_context(tls)
+    if ctx is not None and native:
+        print(f"error: {daemon} TLS requires the Python server (drop "
+              "--native or terminate TLS in front of the native daemon "
+              "-- native/README.md)", file=sys.stderr)
+        raise SystemExit(2)
+    return ctx
+
+
 def connect_store(addr: str, token: str = "", tls=None,
                   timeout: float = 120.0, prefix: str = "/cronsun"):
     """``tls`` is the conf ``store_tls`` section (tlsutil.Tls) or None.
@@ -79,3 +94,27 @@ def connect_store(addr: str, token: str = "", tls=None,
     return connect_sharded(addrs, prefix=prefix, timeout=timeout,
                            token=token, sslctx=sslctx,
                            tls_hostname=tls.hostname if tls else "")
+
+
+def make_sink(cfg: Config, log_addr: Optional[str] = None):
+    """Result-store handle: the networked store when an address is
+    configured (processes may live on different machines — the
+    reference's Mongo topology), else the local SQLite file.
+
+    ``log_addr`` may be a comma-joined SHARD SET ("h1:7078,h2:7078,…"):
+    more than one address returns a routing ShardedJobLogStore (same
+    client surface, record space partitioned by the deterministic
+    job-id hash — logsink/sharded.py); one address returns the plain
+    RemoteJobLogStore after the read-only logmap pin check (a stale
+    single-sink config pointed at one shard of a sharded layout
+    refuses at startup)."""
+    addr = log_addr if log_addr is not None else cfg.log_addr
+    if addr:
+        from ..logsink.sharded import connect_sharded_sink
+        from ..tlsutil import client_context
+        return connect_sharded_sink(
+            [a.strip() for a in addr.split(",") if a.strip()],
+            token=cfg.log_token, sslctx=client_context(cfg.log_tls),
+            tls_hostname=cfg.log_tls.hostname)
+    from ..logsink import JobLogStore
+    return JobLogStore(cfg.log_db)

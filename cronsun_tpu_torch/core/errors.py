@@ -1,4 +1,4 @@
-"""Sentinel errors (reference: errors.go:5-20)."""
+"""Sentinel errors (reference: errors.go:5-20), and :func:`is_error`."""
 
 
 class CronsunError(Exception):
@@ -21,3 +21,13 @@ class SecurityInvalid(ValidationError):
 class DuplicateNode(CronsunError):
     """A live agent with this node identity is already registered
     (reference node.go:51-79: PID signal-0 probe on register)."""
+
+
+def is_error(e: BaseException, *classes: type) -> bool:
+    """``e`` is one of ``classes``: by class, or by class name along its
+    MRO — a store or sink of the JAX package raises its own classes of
+    the same names (the wire protocol names them the same way,
+    ``store/remote.py``)."""
+    names = {c.__name__ for c in classes}
+    return isinstance(e, classes) or any(
+        t.__name__ in names for t in type(e).__mro__)

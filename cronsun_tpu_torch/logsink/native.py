@@ -5,8 +5,8 @@ child process.
 :class:`~cronsun_tpu_torch.logsink.serve.LogSinkServer` — in-memory tables
 with a WAL instead of SQLite, no GIL, bounded retention.  The counterpart
 of ``cronsun_tpu/logsink/native.py``, on the port's launcher
-(:class:`cronsun_tpu_torch.store.native.NativeServer`: spawn on a free
-port, READY, stop).
+(:class:`cronsun_tpu_torch.store.native.NativeServer`: spawn, READY,
+monitor, stop).
 """
 
 from __future__ import annotations
@@ -26,13 +26,24 @@ def find_binary() -> Optional[str]:
 
 
 class NativeLogSinkServer(NativeServer):
-    """``cronsun-logd`` with its default flags (an in-memory result store)
-    serving until :meth:`stop`."""
+    """``cronsun-logd`` (``binary``, else :func:`find_binary`) with the
+    flags of ``cronsun_tpu/logsink/native.py``'s launcher; with none, an
+    in-memory result store."""
 
-    def __init__(self, binary: Optional[str] = None):
+    def __init__(self, binary: Optional[str] = None, *,
+                 host: str = "127.0.0.1", port: int = 0,
+                 db: Optional[str] = None, retain: Optional[int] = None,
+                 token: str = "", hot_days: Optional[int] = None):
         binary = binary or find_binary()
         if binary is None:
             raise FileNotFoundError(
                 "cronsun-logd not found (set $CRONSUN_LOGD or build "
                 "native/)")
-        super().__init__(binary)
+        argv = []
+        if db:
+            argv += ["--db", db]
+        if retain is not None:
+            argv += ["--retain", str(retain)]
+        if hot_days is not None:
+            argv += ["--hot-days", str(hot_days)]
+        super().__init__(binary, argv, host=host, port=port, token=token)

@@ -56,6 +56,7 @@ import numpy as np
 
 from .. import log
 from ..core import Group, Job, Keyspace, TenantQuota
+from ..core.errors import is_error
 from ..core.models import KIND_ALONE
 from ..cron.parser import ParseError, parse
 from ..ops.deps import NEVER as DEP_NEVER, POLICY_BY_NAME
@@ -69,16 +70,6 @@ from ..store.memstore import CompactedError, DELETE, MemStore, PUT, \
 
 # ids that serialize into a JSON string verbatim (no escapes needed)
 _WIRE_SAFE = re.compile(r"^[A-Za-z0-9_.:-]*$").match
-
-
-def _store_error(e: BaseException, *classes) -> bool:
-    """``e`` is one of the store errors ``classes``: by class, or by class
-    name along its MRO — a store of another package raises its own
-    classes of the same names (the wire protocol names them the same
-    way, ``store/remote.py``)."""
-    names = {c.__name__ for c in classes}
-    return isinstance(e, classes) or any(
-        t.__name__ in names for t in type(e).__mro__)
 
 
 class _BuildItem(NamedTuple):
@@ -1618,7 +1609,7 @@ class SchedulerService:
         try:
             self._drain_watches_once()
         except Exception as e:  # noqa: BLE001 — WatchLost, of any store
-            if not _store_error(e, WatchLost):
+            if not is_error(e, WatchLost):
                 raise
             log.warnf("scheduler watch lost (%s); resynchronizing", e)
             self.stats["watch_losses"] += 1
@@ -2605,7 +2596,7 @@ class SchedulerService:
             try:
                 self._open_watches(start_rev=resume)
             except Exception as e:  # noqa: BLE001 — of any store
-                if not _store_error(e, CompactedError, WatchLost):
+                if not is_error(e, CompactedError, WatchLost):
                     raise
                 raise CheckpointError(
                     f"rev {rev} fell out of the store's watch history "

@@ -360,6 +360,45 @@ def test_launcher_on_the_card_publishes_and_exits_clean(cuda, tmp_path):
         server.stop()
 
 
+def test_a_fleet_of_port_processes_runs_its_scheduler_on_the_card(
+        cuda, tmp_path):
+    """Store, two-shard logd, scheduler (no ``--device``: the card), an
+    agent and the web, all ``cronsun_tpu_torch.bin.*``: a job made through
+    the REST API runs and lands in the sharded sink, only the scheduler
+    holds the card's device file open, and SIGTERM stops every process
+    with exit 0, the scheduler logging both kernels' launches."""
+    import json
+    from chip_smoke import card_device_files
+    from torch_fleet import Fleet, WebClient, wait_for
+
+    f = Fleet(tmp_path, dict(store="port", logd="port", sched="port",
+                             node="port", web="port"),
+              job_capacity=2048, node_capacity=64)
+    try:
+        sched = f.sched(device=None)
+        node = f.node("card-node")
+        web = f.web()
+        sched.ready(timeout=300)
+        node.ready()
+        client = WebClient(web.ready())
+        client.call("PUT", "/v1/job", {
+            "id": "card-job", "name": "card-job", "command": "echo ok",
+            "kind": 2, "group": "default",
+            "rules": [{"timer": "* * * * * *", "nids": ["card-node"]}]})
+        wait_for(lambda: client.call("GET", "/v1/logs")["total"] >= 3,
+                 60, "executions in the result store")
+        holders = [p.mod for p in f.procs if card_device_files(p.p.pid)]
+        assert holders == ["cronsun_tpu_torch.bin.sched"], holders
+        assert sched.stop() == 0
+        counts = [ln for ln in sched.lines if "kernel launch counts:" in ln]
+        assert counts, sched.output()
+        launches = json.loads(counts[-1].split("kernel launch counts:", 1)[1])
+        assert launches["bid_argmin"] > 0 and launches["fanout_add"] > 0
+    finally:
+        rcs = f.stop_all()
+    assert all(rc == 0 for _m, rc in rcs), rcs
+
+
 @pytest.mark.parametrize("K,w32,col0", [(1, 1, 0), (33, 5, 32), (1000, 160, 5120),
                                         (300, 400, 96)])
 def test_k1n_kernel_matches_plain(cuda, K, w32, col0):

@@ -50,7 +50,14 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.logsink.native, cronsun_tpu_torch.node, "
             "cronsun_tpu_torch.node.executor, cronsun_tpu_torch.node.agent, "
             "cronsun_tpu_torch.repl.log, cronsun_tpu_torch.repl.manager, "
-            "cronsun_tpu_torch.scripts.bench_chaos; "
+            "cronsun_tpu_torch.scripts.bench_chaos, "
+            "cronsun_tpu_torch.logsink.sharded, cronsun_tpu_torch.noticer, "
+            "cronsun_tpu_torch.web, cronsun_tpu_torch.web.server, "
+            "cronsun_tpu_torch.web.push, cronsun_tpu_torch.web.sse_epoll, "
+            "cronsun_tpu_torch.web.slo, cronsun_tpu_torch.web.ui, "
+            "cronsun_tpu_torch.web.cache, cronsun_tpu_torch.web.sessions, "
+            "cronsun_tpu_torch.bin.store, cronsun_tpu_torch.bin.logd, "
+            "cronsun_tpu_torch.bin.node, cronsun_tpu_torch.bin.web; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
