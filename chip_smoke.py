@@ -161,7 +161,11 @@ Phases, each printing one JSON line:
    K2 launched, the kept calls equal to plain (as in 17-22), and the card's
    allocated bytes back within ``CARD_BYTES_LEFT_BY_DRILLS`` of before once
    every fleet closed.  Per drill: wall seconds, recovery, executions,
-   injected faults.
+   injected faults; for the replica drill at each seed its recovery (to
+   the plan cursor passing its end, as the JAX harness clocks it), the
+   seconds of the drive's trailing quiesce, and any publisher whose flush
+   timed out (a ``publish_flush_timeout`` finding: scheduler, stage,
+   windows in flight, high-water mark written and wanted).
 24. sched_trace — ``run_trace_bench`` at its defaults (50 000 jobs x 512
    nodes, 64 traced jobs pinned to two node agents, 8 live seconds, 12
    paired steps, W = 4): sampled fires with every wire stage (publish,
@@ -192,12 +196,48 @@ Phases, each printing one JSON line:
    fleet-wide lock still holds is skipped, as in the reference; counted)
    and the Common job on both every second;
    ``/v1/logs``' total equals the sharded sink's; no local ``log_db``.
+   The port's CLI (``python3 -m cronsun_tpu_torch.bin.ctl``) logs in,
+   triggers three scheduler checkpoints through the live seconds (the
+   scheduler's ``checkpoint_dir``: a base, then deltas), audits the live
+   fleet with ``fsck`` over the 2-shard store and result store (exit 0,
+   no finding) and, once the scheduler stopped, folds its delta chain
+   with ``checkpoint-compact`` (exit 0).
    Printed: each process's READY seconds, the seed seconds, the
    scheduler's step p50/p99, the web's p50/p99 over
    ``PROCESS_FLEET_WEB_REQUESTS`` requests each of ``/v1/logs``,
    ``/v1/nodes`` and ``/v1/metrics``, executions, the alert's delay,
    the card's used MiB before and after.  Process logs go to
    ``chiprun_out/fleet_<name>.log``.
+26. demo_ctl — the port's one-process demo, ``cronsun_tpu_torch.demo``
+   (``--nodes 4 --port <free port>``, no ``--device``: the scheduler on
+   the card, its table at the conf's 65536 jobs x 1024 nodes), run as
+   ``python3 -m chip_smoke --demo-child OUT <demo flags>`` (the demo's
+   ``main``, with the launch counts set to 0 before it and read after it,
+   and one call of each kernel at each shape kept and held against plain
+   once it stopped, as in 17-22), driven only through the port's CLI:
+   ``login``, ``version``, ``job import`` of ``DEMO_JOBS`` jobs (half
+   Common, half Alone, ``*/10 * * * * *`` on the demo's four nodes, each
+   run printing its scheduled second),
+   ``jobs``, ``nodes``, ``executing``, ``sched status``, ``run`` (a seeded
+   job, once), ``checkpoint``, ``tenant set``/``show``, ``slo set``/
+   ``show``, ``trace top``, a ``logs --follow`` process through the live
+   seconds and ``logs --json`` paged at the end.  After ``DEMO_LIVE_S``
+   live seconds: every imported job ran, each Alone (job, second) at
+   most once and each Common one on all four nodes (``check_demo_runs``);
+   the compute apps hold more MiB than before and the demo's pid holds
+   the card's device file, the CLI's does not; SIGTERM: exit 0 and the
+   ``executed N runs across 4 nodes`` line; K1 and K2 launched, the kept
+   calls equal to plain.  The processes' logs go to ``demo_<name>.log``
+   beside the other phases' (``OUT_DIR``).
+27. host_benches — the port's four host-plane benches at the shapes of
+   their JAX smoke tests (``tests/test_bench_smoke.py``) on the Python
+   store and result store: ``bench_dispatch.run_quick`` (3 s a rung),
+   ``bench_store.run_stall_suite`` (100 000 keys), ``bench_query.
+   run_query_bench`` (1 shard, 3 readers, 1.5 s, 1000 records) and
+   ``bench_push.run_push_bench`` (20 viewers, 1.5 s, 50 records/s, 3
+   poll viewers).  Each prints its JSON keys and result; no error row,
+   and no process any of them starts holds the card's device file
+   (``ChildContexts`` samples every descendant).
 
 Then each phase's seconds, the kernels line, the nvidia-smi line, and as
 the last line
@@ -2763,7 +2803,7 @@ def phase_chaos_drills(dev):
                 "baseline_p99_ms", "degraded_p99_ms", "hardened_p99_ms",
                 "healthy_fire_p99_ms", "degraded_fire_p99_ms",
                 "acked_probes", "lost_probes", "saves", "skipped",
-                "agent_redeliveries")
+                "agent_redeliveries", "quiesce_s")
         gc.collect()
         return {"drills": {
             k: {"wall_s": v.get("wall_s"), "findings": len(v["findings"]),
@@ -2772,8 +2812,17 @@ def phase_chaos_drills(dev):
             "total_findings": res["total_findings"],
             "replica_seeds": {
                 s: {"findings": len(r["findings"]),
-                    "agent_redeliveries": r["info"]["agent_redeliveries"]}
+                    "agent_redeliveries": r["info"]["agent_redeliveries"],
+                    "recovery_s": r["info"].get("recovery_s"),
+                    "quiesce_s": r["info"].get("quiesce_s")}
                 for s, r in res["replica_leader_kill_seeds"].items()},
+            # the replica drills' publishers that did not land in time
+            "publish_flush_timeout": {
+                str(s): [{k: f[k] for k in ("sched", "stage", "inflight",
+                                            "hwm_done", "hwm_want")}
+                         for f in r["info"].get("flush_timeouts", [])]
+                for s, r in [(43, res["replica_leader_kill"]),
+                             *res["replica_leader_kill_seeds"].items()]},
             "unreplicated_codes": sorted({
                 f["code"] for f in
                 res["replica_leader_kill_unreplicated"]["findings"]}),
@@ -3031,6 +3080,8 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
     ks = Keyspace()
     tmp = tempfile.mkdtemp(prefix="cronsun-fleet-")
     local_db = os.path.join(tmp, "local-UNUSED.db")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    session = os.path.join(tmp, "ctl-session")
     nodes = ["pf-node-0", "pf-node-1"]
     out = {"phase": "process_fleet", "jobs": n_jobs, "nodes": n_nodes,
            "live_s": live_s, "node_ttl": node_ttl}
@@ -3045,6 +3096,7 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
             json.dump({"log_db": local_db, "window_s": 4, "node_ttl": node_ttl,
                        "job_capacity": n_jobs + 256,
                        "node_capacity": n_nodes + 8, "proc_req": 0,
+                       "checkpoint_dir": ckpt_dir,
                        "mail": {"enable": True, "http_api": recv.url}}, f)
         procs["store"] = port_proc(
             "store", "store", "--shards", "2", "--port", "0", "--wal",
@@ -3071,6 +3123,9 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
         out["ready_s"] = {k: p.ready_s for k, p in procs.items()}
 
         web = WebClient(procs["web"].ready())
+        web_url = f"http://{procs['web'].ready()}"
+        ctl_ok(web_url, session, "login", "admin@admin.com", "--password",
+               "admin")
         sse = SseWatch(web, set(FLEET_JOBS))
         for job, kind in FLEET_JOBS.items():
             web.call("PUT", "/v1/job", {
@@ -3104,10 +3159,28 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
                 raise AssertionError(
                     f"process_fleet: CUDA contexts {out['card_contexts']}, "
                     f"want a new one, held by the scheduler alone")
+        # scheduler checkpoints through the CLI through the live seconds:
+        # a base, then deltas
+        triggers = []
         while time.time() < t_live + live_s:
             for p in procs.values():
                 p.check_alive()
+            if len(triggers) < 3 and (not triggers or
+                                      time.time() > triggers[-1] + 5.0):
+                ctl_ok(web_url, session, "checkpoint")
+                triggers.append(time.time())
             time.sleep(0.5)
+
+        # the CLI's offline audit of the live fleet's 2-shard store and
+        # result store: no finding
+        t = time.perf_counter()
+        rc, text, err = run_ctl(web_url, session, "fsck", "--store",
+                                store_addr, "--logsink", logd_addr)
+        out["fsck"] = {"rc": rc, "s": time.perf_counter() - t,
+                       "out": text.strip().splitlines()[:5]}
+        if rc != 0 or "clean" not in text:
+            raise AssertionError(f"process_fleet: fsck exit {rc}:\n"
+                                 f"{text}{err}")
 
         listed = {n["id"]: n for n in web.call("GET", "/v1/nodes")}
         if not all(listed.get(n, {}).get("connected") for n in nodes):
@@ -3167,6 +3240,10 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
                                  f"{rcs['sched']}:\n"
                                  f"{''.join(procs['sched'].lines[-40:])}")
         counts = json.loads(line[-1].split("kernel launch counts:", 1)[1])
+        # the stopped scheduler's delta chain, folded by the CLI
+        out["checkpoint_files"] = sorted(os.listdir(ckpt_dir))
+        out["checkpoint_compact"] = ctl_ok(
+            web_url, session, "checkpoint-compact", ckpt_dir).strip()
         if on_card and not all(counts.get(n) for n in SINGLE_DEVICE_KERNELS):
             raise AssertionError(f"a kernel never launched in the fleet's "
                                  f"scheduler: {counts}")
@@ -3208,7 +3285,354 @@ def phase_process_fleet(n_jobs=PROCESS_FLEET_JOBS, n_nodes=PROCESS_FLEET_NODES,
     return counts
 
 
+DEMO_NODES = 4
+DEMO_JOBS = 200         # imported through the CLI: half Common, half Alone
+DEMO_PERIOD = 10        # ``*/10 * * * * *`` on every demo node
+DEMO_LIVE_S = 30
+
+
+def demo_jobs(n=DEMO_JOBS, nodes=DEMO_NODES, period=DEMO_PERIOD) -> list:
+    """``job import``'s file: ``n`` jobs due every ``period`` seconds on
+    every demo node (``node-<i>``), even ones Common, odd ones Alone; each
+    run prints the second it was scheduled for."""
+    return [{"name": f"dc{i:04d}", "group": "demo",
+             "command": "sh -c 'echo $CRONSUN_SCHEDULED_TS'",
+             "kind": i % 2,
+             "rules": [{"timer": f"*/{period} * * * * *",
+                        "nids": [f"node-{k}" for k in range(nodes)]}]}
+            for i in range(n)]
+
+
+def check_demo_runs(records, kinds, nodes, period, t_read, margin=3.0):
+    """Hold ``/v1/logs`` records (dicts with ``jobId``, ``node``,
+    ``beginTime``, ``output``) of the jobs in ``kinds`` (job id -> 0
+    Common, 1 Alone), each due every ``period`` seconds: every job ran;
+    from a job's first second up to ``t_read - margin``, a Common job ran
+    on each of ``nodes`` once a second and an Alone job at most once a
+    second (a second its previous run's fleet-wide lock still holds is
+    skipped, as in the reference: counted).  A run's second is the one
+    its output names (a job echoing ``$CRONSUN_SCHEDULED_TS``), else its
+    begin time rounded to the period.  Raises on a miss; returns the
+    counts."""
+    by = {}
+    for r in records:
+        if r["jobId"] in kinds:
+            out = r.get("output", "").strip()
+            sec = int(out) if out.isdigit() else \
+                int(round(r["beginTime"] / period)) * period
+            by.setdefault(r["jobId"], {}).setdefault(sec, []).append(
+                r["node"])
+    last = int((t_read - margin) // period * period)
+    never = sorted(set(kinds) - set(by))
+    dupes, gaps, skipped, seconds = [], [], 0, 0
+    for jid, secs in by.items():
+        for sec in range(min(secs), last + 1, period):
+            got = sorted(secs.get(sec, []))
+            seconds += 1
+            if kinds[jid] == 1:
+                if len(got) > 1:
+                    dupes.append((jid, sec, got))
+                skipped += not got
+            elif got != sorted(nodes):
+                gaps.append((jid, sec, got))
+    if never or dupes or gaps:
+        raise AssertionError(f"demo runs: never ran {never[:5]} "
+                             f"({len(never)}), Alone twice {dupes[:5]}, "
+                             f"Common off its nodes {gaps[:5]}")
+    return {"jobs": len(kinds), "job_seconds_checked": seconds,
+            "alone_skipped_seconds": skipped,
+            "records": sum(len(v) for s in by.values() for v in s.values())}
+
+
+def run_ctl(url, session, *args, timeout=120):
+    """One ``python3 -m cronsun_tpu_torch.bin.ctl`` run against ``url``:
+    (exit code, stdout, stderr)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    r = subprocess.run([sys.executable, "-m", "cronsun_tpu_torch.bin.ctl",
+                        "--url", url, "--session", session, *args],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def ctl_ok(url, session, *args) -> str:
+    rc, out, err = run_ctl(url, session, *args)
+    if rc != 0:
+        raise AssertionError(f"cronsun-ctl {' '.join(args)}: exit {rc}\n"
+                             f"{out}{err}")
+    return out
+
+
+def demo_child(out_path, argv) -> int:
+    """The demo process of phase ``demo_ctl``: ``cronsun_tpu_torch.demo``'s
+    ``main(argv)`` with the kernels' launch counts set to 0 before it and
+    read after it, and one call of each kernel at each shape the demo gave
+    it kept (``PathCalls``) and held against its plain version once the
+    demo has stopped; written to ``out_path`` as JSON."""
+    from cronsun_tpu_torch import demo
+    from cronsun_tpu_torch.ops import kernels as k
+    with PathCalls() as calls:
+        k.reset_launch_counts()
+        rc = demo.main(argv)
+        counts = k.launch_counts()
+    path = calls.check("demo_ctl")
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "launches": counts, "path_checks": path}, f)
+    return rc
+
+
+def phase_demo_ctl(nodes=DEMO_NODES, n_jobs=DEMO_JOBS, live_s=DEMO_LIVE_S):
+    """The port's one-process demo on the card, driven by the port's CLI
+    (see the module docstring, phase 26).  Returns its launch counts and
+    path checks."""
+    import shutil
+    import socket
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="cronsun-demo-")
+    session = os.path.join(tmp, "session")
+    child_out = os.path.join(tmp, "demo.json")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    out = {"phase": "demo_ctl", "nodes": nodes, "jobs": n_jobs,
+           "live_s": live_s}
+    demo = follow = None
+    try:
+        apps_before = compute_apps()
+        out["card_mib_before"] = card_mib_used()
+        t = time.perf_counter()
+        demo = Proc("chip_smoke", "--demo-child", child_out, "--nodes",
+                    str(nodes), "--port", str(port), name="demo")
+        deadline = time.perf_counter() + 300
+        while not any(ln.startswith("cronsun-tpu demo up:")
+                      for ln in demo.lines):
+            demo.check_alive()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"demo_ctl: not up:\n{demo.output()}")
+            time.sleep(0.1)
+        out["up_s"] = time.perf_counter() - t
+        ctl_ok(url, session, "login", "admin@admin.com", "--password",
+               "admin")
+        out["version"] = ctl_ok(url, session, "version").strip()
+        jobs_file = os.path.join(tmp, "jobs.json")
+        with open(jobs_file, "w") as f:
+            json.dump(demo_jobs(n_jobs, nodes), f)
+        t = time.perf_counter()
+        imported = ctl_ok(url, session, "job", "import", jobs_file)
+        out["import_s"] = time.perf_counter() - t
+        if f"{n_jobs} job(s) imported" not in imported:
+            raise AssertionError(f"demo_ctl: import said {imported[-200:]}")
+        t_live = time.time()
+        listed = json.loads(ctl_ok(url, session, "--json", "jobs"))
+        kinds = {j["id"]: j["kind"] for j in listed if j["group"] == "demo"}
+        seeded = [j for j in listed if j["group"] != "demo"]
+        if len(kinds) != n_jobs or len(seeded) != 2:
+            raise AssertionError(f"demo_ctl: {len(kinds)} imported and "
+                                 f"{len(seeded)} seeded jobs listed")
+        # a CLI process streams the logs through the live seconds; it (and
+        # every CLI run) must hold no CUDA context, the demo must hold one
+        follow = Proc("cronsun_tpu_torch.bin.ctl", "--url", url,
+                      "--session", session, "logs", "--follow",
+                      "--interval", "1", name="ctl-follow")
+        time.sleep(min(8.0, live_s / 2))
+        apps = compute_apps()
+        holders = {"demo": card_device_files(demo.p.pid),
+                   "ctl-follow": card_device_files(follow.p.pid)}
+        out["card_contexts"] = {"compute_apps_before": apps_before,
+                                "compute_apps": apps,
+                                "device_files": holders}
+        if sum(m for _, m in apps) <= sum(m for _, m in apps_before) or \
+                not holders["demo"] or holders["ctl-follow"]:
+            raise AssertionError(f"demo_ctl: CUDA contexts "
+                                 f"{out['card_contexts']}, want a new one, "
+                                 "held by the demo alone")
+        cmds = {}
+        for args in (["nodes"], ["executing"], ["sched", "status"],
+                     ["run", seeded[0]["group"] + "-" + seeded[0]["id"],
+                      "--node", "node-0"],
+                     ["checkpoint"],
+                     ["tenant", "set", "demo-tenant", "--rate", "50"],
+                     ["tenant", "show", "demo-tenant"],
+                     ["slo", "set", "demo-slo", "--target", "0.99"],
+                     ["slo", "show"], ["trace", "top"]):
+            t = time.perf_counter()
+            text = ctl_ok(url, session, *args)
+            cmds[" ".join(args[:2])] = {"s": time.perf_counter() - t,
+                                        "lines": len(text.splitlines())}
+        out["ctl"] = cmds
+        if sum(ln.startswith("node-") and " up " in ln for ln in
+               ctl_ok(url, session, "nodes").splitlines()) != nodes:
+            raise AssertionError("demo_ctl: not every demo node is up")
+        while time.time() < t_live + live_s:
+            demo.check_alive()
+            time.sleep(0.5)
+        t_read = time.time()
+        records, page = {}, 1
+        while True:
+            got = json.loads(ctl_ok(url, session, "--json", "logs",
+                                    "--size", "500", "--page", str(page)))
+            # by id: records landing while the pages are read push older
+            # ones down a page, so one can be listed twice
+            records.update((r["id"], r) for r in got["list"])
+            if len(got["list"]) < 500:
+                break
+            page += 1
+        records = list(records.values())
+        out["log_total"] = got["total"]
+        out["runs"] = check_demo_runs(records, kinds,
+                                      [f"node-{k}" for k in range(nodes)],
+                                      DEMO_PERIOD, t_read,
+                                      margin=DEMO_PERIOD)
+        follow_rc = follow.stop(signal.SIGINT, timeout=30)
+        rc = demo.stop(signal.SIGTERM, timeout=120)
+        summary = [ln for ln in demo.lines if ln.startswith("executed ")]
+        import re
+        if rc != 0 or not summary or not re.fullmatch(
+                rf"executed \d+ runs across {nodes} nodes\n", summary[-1]):
+            raise AssertionError(f"demo_ctl: the demo exited {rc}:\n"
+                                 f"{''.join(demo.lines[-40:])}")
+        with open(child_out) as f:
+            child = json.load(f)
+        counts = child["launches"]
+        if not all(counts.get(n) for n in SINGLE_DEVICE_KERNELS):
+            raise AssertionError(f"demo_ctl: a kernel of the path never "
+                                 f"launched: {counts}")
+        unchecked = {n for n, c in counts.items() if c} - {
+            c["kernel"] for c in child["path_checks"]}
+        if unchecked:
+            raise AssertionError(f"demo_ctl: no call of {unchecked} kept")
+        out.update(summary=summary[-1].strip(), exit_codes={
+            "demo": rc, "ctl-follow": follow_rc},
+            launches_demo=counts, path_checks=child["path_checks"],
+            card_mib_after=card_mib_used(), nvidia_smi=nvidia_smi_line())
+    finally:
+        for p in (follow, demo):
+            if p is not None:
+                p.stop(signal.SIGKILL, timeout=30)
+                p.save_log("demo")
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    return counts, child["path_checks"]
+
+
+class ChildContexts:
+    """While entered, samples every descendant process of this one (every
+    0.2 s): the pids seen and any that held the card's device file open
+    (a CUDA context; ``card_device_files``)."""
+
+    def __init__(self):
+        self.seen, self.holders = set(), {}
+
+    def _children(self, pid):
+        out = []
+        try:
+            for task in os.listdir(f"/proc/{pid}/task"):
+                with open(f"/proc/{pid}/task/{task}/children") as f:
+                    out += [int(c) for c in f.read().split()]
+        except OSError:
+            pass
+        return out
+
+    def _poll(self):
+        while not self._stop.is_set():
+            todo = self._children(os.getpid())
+            while todo:
+                pid = todo.pop()
+                self.seen.add(pid)
+                try:
+                    held = card_device_files(pid)
+                except OSError:
+                    held = []
+                if held:
+                    self.holders[pid] = held
+                todo += self._children(pid)
+            self._stop.wait(0.2)
+
+    def __enter__(self):
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def _bench_errors(name, res):
+    """The error rows of a host bench's result: an ``error`` entry or a
+    nonzero ``*_errors`` / ``records_dropped`` count."""
+    bad = {k: v for k, v in res.items()
+           if k == "error" or ((k.endswith("_errors") or
+                                k == "records_dropped") and v)}
+    if bad:
+        raise AssertionError(f"host_benches: {name}: {bad}")
+
+
+def phase_host_benches():
+    """The port's four host-plane benches at the shapes of their JAX smoke
+    tests, on the Python store and result store (see the module
+    docstring, phase 27).  Returns their seconds."""
+    from cronsun_tpu_torch.scripts import (bench_dispatch, bench_push,
+                                           bench_query, bench_store)
+    env = {"BENCH_STORE": "py", "BENCH_LOGD": "py", "BENCH_AGENT": "py"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def log(*a):
+        print(*a, file=sys.stderr, flush=True)
+    runs = (
+        ("bench_dispatch", lambda: bench_dispatch.run_quick(
+            seconds=3, on_log=log)),
+        ("bench_store", lambda: bench_store.run_stall_suite(
+            n_keys=100_000, on_log=log)),
+        ("bench_query", lambda: bench_query.run_query_bench(
+            logd_shards=1, readers=3, seconds=1.5, seed_records=1000,
+            on_log=log)),
+        ("bench_push", lambda: bench_push.run_push_bench(
+            viewers=20, seconds=1.5, write_rate=50, poll_viewers=3,
+            on_log=log)))
+    out, seconds = {"phase": "host_benches"}, {}
+    try:
+        for name, run in runs:
+            with ChildContexts() as ctx:
+                t = time.perf_counter()
+                res = run()
+                seconds[name] = time.perf_counter() - t
+            _bench_errors(name, res)
+            if ctx.holders:
+                raise AssertionError(f"host_benches: {name}: processes "
+                                     f"with a CUDA context {ctx.holders}")
+            out[name] = {"seconds": seconds[name], "keys": sorted(res),
+                         "child_processes": len(ctx.seen), "result": res}
+        need = (out["bench_dispatch"]["result"]["agg_1_agent_per_s"] > 0,
+                out["bench_store"]["result"].get(
+                    "snapshot_stall_ratio_py") is not None,
+                all(out["bench_query"]["result"][f"query_plane_{s}_qps"] > 0
+                    for s in ("latest", "history", "stat_days")),
+                out["bench_push"]["result"][
+                    "push_plane_viewers_connected"] == 20)
+        if not all(need):
+            raise AssertionError(f"host_benches: gates {need}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["nvidia_smi"] = nvidia_smi_line()
+    emit(out)
+    return seconds
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--demo-child"]:
+        return demo_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", type=int, default=100,
                     help="timed windows of each headline, plain and armed "
@@ -3252,8 +3676,11 @@ def main(argv=None) -> int:
         ("chaos_drills", phase_chaos_drills),
         ("sched_trace", phase_sched_trace))}
     fleet = timed("process_fleet", phase_process_fleet)
+    demo, demo_path = timed("demo_ctl", phase_demo_ctl)
+    timed("host_benches", phase_host_benches)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
-    bench_checks = [t for _, checked in benches.values() for t in checked]
+    bench_checks = [t for _, checked in benches.values() for t in checked
+                    ] + demo_path
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
@@ -3264,6 +3691,7 @@ def main(argv=None) -> int:
         for phase, (c, _) in benches.items():
             r[f"launches_{phase}"] = c[r["name"]]
         r["launches_process_fleet"] = fleet.get(r["name"], 0)
+        r["launches_demo"] = demo.get(r["name"], 0)
         if r["name"] == "bid_argmin_natural":
             # K1n's path is the 2-D mesh: its launches are that run's
             r["launches"] = mesh["2d_2x2"][r["name"]]

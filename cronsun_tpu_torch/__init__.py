@@ -12,6 +12,13 @@ steps of the plan run as hand-written Hopper kernels (``csrc/``); on the
 CPU the same wrappers run their plain PyTorch versions.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # lazy, so the host processes (store, result store, agents, web, CLI,
+    # the host benches' children) import no torch
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(name)

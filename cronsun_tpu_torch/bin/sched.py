@@ -247,6 +247,10 @@ def main(argv=None) -> int:
         steps = run_worker(planner)
         log.infof("mesh worker released after %d plan steps", steps)
         _log_launch_counts()
+        # join gloo's threads now: left to interpreter teardown, the
+        # process group's destructor can abort the exit ("terminate
+        # called without an active exception", exit -6)
+        dist.destroy_process_group()
         return 0
     store = connect_store(args.store, token=cfg.store_token, tls=cfg.store_tls,
                           prefix=cfg.prefix)

@@ -107,6 +107,12 @@ class Executor:
         if not argv:
             return ExecResult(False, "", begin, self.clock(),
                               error="empty command")
+        # the child leads its own session (the timeout kills its group).
+        # With no user to switch to, start_new_session does that without a
+        # preexec_fn, so CPython spawns with vfork, not fork: a fork copies
+        # the page tables of a process holding a CUDA context (the demo's
+        # agents share the scheduler's), 0.2-1.0 s a run of `true` on an
+        # H100 host
         preexec = None
         if user:
             try:
@@ -118,13 +124,12 @@ class Executor:
             def preexec():  # noqa: F811
                 os.setsid()
                 demote()
-        else:
-            preexec = os.setsid
 
         try:
             proc = subprocess.Popen(
                 argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                env=env, preexec_fn=preexec, start_new_session=False)
+                env=env, preexec_fn=preexec,
+                start_new_session=preexec is None)
         except (OSError, PermissionError) as e:
             return ExecResult(False, "", begin, self.clock(), error=str(e))
 

@@ -185,6 +185,12 @@ class Fleet:
         self.ledger = []
         self.ledger_mu = threading.Lock()
         self.step_errors = 0        # faulted-window step/poll failures
+        # publishers whose flush timed out (quiesce_publishers), and the
+        # last drive()'s clock: when its cursor passed ``end`` and the
+        # seconds its trailing quiesce and re-plan took after that
+        self.flush_timeouts = []
+        self.end_passed_at = None
+        self.quiesce_s = 0.0
         self.agent_ttl = agent_ttl
         self._last_ka = 0.0         # drive()'s keepalive cadence anchor
         self._clients = []
@@ -397,14 +403,21 @@ class Fleet:
         publish hole is re-planned only by a later step.  While one is
         outstanding the drive goes on from the hole, where the
         scheduler's next step rewinds its cursor (the production loop's
-        path: late, never lost)."""
+        path: late, never lost).  ``end_passed_at`` is the moment the
+        cursor first passed ``end`` (where the JAX harness's drive
+        returns) and ``quiesce_s`` the seconds from there to the
+        return."""
         stall_t0 = time.monotonic()
         redrive_until = None
+        self.end_passed_at, self.quiesce_s = None, 0.0
         while True:
             if t >= end:
+                if self.end_passed_at is None:
+                    self.end_passed_at = time.monotonic()
                 self.quiesce_publishers()
                 hole = self.publish_hole()
                 if hole is None:
+                    self.quiesce_s = time.monotonic() - self.end_passed_at
                     return t
                 if redrive_until is None:
                     redrive_until = time.monotonic() + stall_timeout
@@ -473,15 +486,37 @@ class Fleet:
         this before the kill: a real kill -9 almost always falls
         between landed windows, and the coverage gate is about
         takeover correctness, not about windows that provably never
-        reached the store (those are the bounded failover gap)."""
+        reached the store (those are the bounded failover gap).
+
+        Returns the publishers whose flush timed out, one dict each
+        (also kept in ``flush_timeouts``): the scheduler, the ``stage``
+        that had not landed (``build``: a window still in the pipelined
+        step's builder; ``windows``: windows in flight; ``hwm``: the
+        high-water mark not yet written), the publisher's counts, and
+        where each of its threads stood (``stacks``)."""
+        out = []
         for sc in self.live_scheds():
+            t_end = time.monotonic() + timeout
             try:
                 builder = getattr(sc, "_builder", None)
-                if builder is not None:
-                    builder.flush()       # pipelined step: gather/build
-                sc.publisher.flush(timeout=timeout)
+                stage = None
+                if builder is not None and not builder.flush(timeout):
+                    stage = "build"   # pipelined step: gather/build
+                pub = sc.publisher
+                if stage is None and not pub.flush(
+                        timeout=max(0.0, t_end - time.monotonic())):
+                    stage = "windows" if pub.inflight else "hwm"
             except Exception:  # noqa: BLE001 — a dead/partitioned
-                pass           # publisher's windows are the drill's point
+                continue       # publisher's windows are the drill's point
+            if stage is not None:
+                out.append({"sched": sc.node_id, "stage": stage,
+                            "timeout_s": timeout,
+                            "inflight": pub.inflight,
+                            "hwm_done": pub._hwm_done,
+                            "hwm_want": pub._hwm_want,
+                            "stacks": _publisher_stacks(pub)})
+        self.flush_timeouts += out
+        return out
 
     def settle(self, timeout=30.0):
         """Let the fleet converge to a fixpoint: the async publisher
@@ -682,6 +717,24 @@ class Fleet:
         for s in self.store_srvs:
             s.stop()
         self.logd.stop()
+
+
+def _publisher_stacks(pub, depth=8):
+    """The innermost ``depth`` frames of each of ``pub``'s threads (its
+    publish loop, its high-water-mark writer and its lanes' workers), by
+    thread name: where a flush that timed out was held."""
+    import traceback
+    threads = [pub._thread, pub._hwm_thread, pub._barrier_thread] + [
+        t for pool in pub._pools for t in getattr(pool, "_threads", ())]
+    frames = sys._current_frames()
+    out = {}
+    for t in threads:
+        f = frames.get(getattr(t, "ident", None))
+        if f is not None:
+            out[t.name] = [
+                f"{fs.filename.rsplit('/', 1)[-1]}:{fs.lineno} {fs.name}"
+                for fs in traceback.extract_stack(f)[-depth:]]
+    return out
 
 
 def _findings_json(findings):
@@ -1484,9 +1537,13 @@ def drill_replica_leader_kill(seed=43, replicated=True, on_log=print,
         on_log(f"killing replica leader {leader_mgr.self_addr} "
                f"(epoch {leader_mgr.store.repl_epoch()}) at epoch {mid}")
         t_kill = time.monotonic()
+        fleet.flush_timeouts = []
         fleet.kill_store_leader()
         end = fleet.drive(mid, mid + 4, stall_timeout=90.0)
-        recovery_s = time.monotonic() - t_kill
+        # the JAX harness's drive returns as the cursor passes its end:
+        # that is the recovery; the trailing quiesce is clocked apart
+        recovery_s = fleet.end_passed_at - t_kill
+        quiesce_s = fleet.quiesce_s
         stop_probe.set()
         th.join(timeout=15)
         fleet.settle(timeout=45.0)
@@ -1517,12 +1574,22 @@ def drill_replica_leader_kill(seed=43, replicated=True, on_log=print,
                 "recovery_unbounded", "",
                 f"replica takeover took {recovery_s:.1f}s "
                 f"(> {bound:.0f}s)"))
+        # a publisher that has not landed its windows or its mark within
+        # the flush's timeout after the failover is a finding of its own
+        for ft in fleet.flush_timeouts:
+            findings.append(invariants.Finding(
+                "publish_flush_timeout", ft["sched"],
+                f"publisher flush timed out after {ft['timeout_s']:.0f}s "
+                f"at stage {ft['stage']} ({ft['inflight']} windows in "
+                f"flight, hwm {ft['hwm_done']} of {ft['hwm_want']})"))
         info.update(
-            recovery_s=round(recovery_s, 3),
+            recovery_s=round(recovery_s, 3), quiesce_s=round(quiesce_s, 3),
+            flush_timeouts=list(fleet.flush_timeouts),
             acked_probes=len(acked), lost_probes=len(lost),
             promoted=[m.self_addr for m in survivors],
             epoch=max(m.store.repl_epoch() for m in fleet.repl_mgrs))
-        on_log(f"replica_leader_kill: recovery {recovery_s:.2f}s, "
+        on_log(f"replica_leader_kill: recovery {recovery_s:.2f}s "
+               f"(quiesce {quiesce_s:.2f}s), "
                f"{info['acked_probes']} acked probes ({len(lost)} "
                f"lost), {info['executions']} execs, "
                f"{len(findings)} finding(s)")

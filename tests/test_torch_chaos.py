@@ -377,3 +377,168 @@ def test_a_killed_agents_threads_stop_with_its_fleet(monkeypatch):
     assert left == []
 
 
+
+
+class _StuckPublisher:
+    """A publisher whose flush never lands: ``inflight`` windows still
+    out, or (none in flight) its high-water mark behind."""
+
+    _thread = _hwm_thread = _barrier_thread = None
+    _pools = ()
+
+    def __init__(self, inflight, hwm_done=5, hwm_want=5):
+        self.inflight = inflight
+        self._hwm_done, self._hwm_want = hwm_done, hwm_want
+
+    def flush(self, timeout=30.0):
+        return (not self.inflight) and self._hwm_done >= self._hwm_want
+
+
+class _StuckBuilder:
+    def __init__(self, lands):
+        self.lands = lands
+
+    def flush(self, timeout=120.0):
+        return self.lands
+
+
+def test_quiesce_reports_each_publisher_whose_flush_timed_out():
+    """quiesce_publishers names the schedulers whose flush returned False
+    and the stage that had not landed, and keeps them in
+    ``flush_timeouts``; a publisher that landed is not reported."""
+    import types
+    scheds = [types.SimpleNamespace(node_id=n, publisher=p, _builder=b)
+              for n, p, b in (
+                  ("landed", _StuckPublisher(0), _StuckBuilder(True)),
+                  ("windows", _StuckPublisher(2), _StuckBuilder(True)),
+                  ("hwm", _StuckPublisher(0, 7, 9), _StuckBuilder(True)),
+                  ("build", _StuckPublisher(0), _StuckBuilder(False)))]
+    fleet = types.SimpleNamespace(flush_timeouts=[],
+                                  live_scheds=lambda: scheds)
+    out = port_chaos.Fleet.quiesce_publishers(fleet, timeout=0.1)
+    assert [(d["sched"], d["stage"]) for d in out] == [
+        ("windows", "windows"), ("hwm", "hwm"), ("build", "build")]
+    assert out[1]["hwm_done"] == 7 and out[1]["hwm_want"] == 9
+    assert out[0]["inflight"] == 2
+    assert fleet.flush_timeouts == out
+    assert all(d["stacks"] == {} for d in out)     # no thread to show
+
+
+def test_a_stuck_publishers_threads_are_shown_where_they_wait():
+    """A real publisher held in its store call: the report's stacks show
+    its lane worker inside that call."""
+    import threading
+    from cronsun_tpu_torch.sched.publisher import OrderPublisher
+    release = threading.Event()
+
+    class Held:
+        def put_many(self, items, lease=0):
+            release.wait(30)
+    pub = OrderPublisher([Held()], advance_hwm=lambda v: None)
+    try:
+        pub.submit([(100, [("/k", "v")])], lease=0, hwm=101)
+        assert not pub.flush(timeout=0.3)
+        stacks = port_chaos._publisher_stacks(pub)
+        assert any("put_many" in fr for fr in stacks["pub0_0"])
+        assert "hwm-advance" in stacks and "order-publisher" in stacks
+    finally:
+        release.set()
+        pub.stop(timeout=10)
+
+
+def test_drive_clocks_the_end_apart_from_its_trailing_quiesce():
+    """The drive's ``end_passed_at`` is when its cursor passed ``end``
+    (where the JAX harness's drive returns); the quiesce after it is
+    ``quiesce_s``."""
+    import time
+
+    class SlowFlush(_StubFleet):
+        def quiesce_publishers(self, timeout=30.0):
+            time.sleep(0.3)
+    sched = _Sched(late=[])
+    fleet = SlowFlush(sched)
+    t0 = time.monotonic()
+    fleet.drive(100, 104)
+    assert fleet.end_passed_at - t0 < 0.2
+    assert 0.3 <= fleet.quiesce_s < 1.0
+
+
+class _Gate:
+    """Holds calls of ``fn`` until :meth:`open`; ``entered`` is set once
+    one is held."""
+
+    def __init__(self, fn):
+        import threading
+        self.fn, self.entered = fn, threading.Event()
+        self._open = threading.Event()
+
+    def __call__(self, *a, **kw):
+        self.entered.set()
+        self._open.wait(60)
+        return self.fn(*a, **kw)
+
+    def open(self):
+        self._open.set()
+
+
+class _GatedLane:
+    def __init__(self, conn, gate):
+        self._conn, self.put_many = conn, gate
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+
+@pytest.mark.chaos
+def test_publisher_lands_its_window_and_mark_after_a_replica_leader_kill(
+        monkeypatch):
+    """The replica leader is killed while one window's orders and the
+    previous window's high-water mark are on their way to it (both held
+    at the publisher's store calls until the kill): the scheduler's
+    publisher must land both on the promoted leader, its flush returning
+    within the replica drill's bound (``promote_after * 3 + 10``), and
+    the drive must pass its end with no flush timing out."""
+    import time
+    monkeypatch.setenv("CRONSUN_CHAOS", "1")
+    promote_after = 1.5
+    bound = promote_after * 3 + 10
+    with time_limit(150, "replica leader kill with a window in flight"):
+        fl = port_chaos.Fleet(seed=43, n_jobs=8, n_agents=2, lease_ttl=2.0,
+                              repl="quorum", repl_members=3,
+                              promote_after=promote_after, device="cpu")
+        try:
+            fl.put_jobs()
+            t = fl.drive(port_chaos.T0, port_chaos.T0 + 3)
+            assert fl.quiesce_publishers() == []
+            sc = next(s for s in fl.scheds if s.is_leader)
+            pub = sc.publisher
+            hwm = _Gate(pub._advance_hwm)
+            pub._advance_hwm = hwm           # the next mark is held
+            sc.step(now=t)
+            t = sc._next_epoch
+            assert hwm.entered.wait(30), "no high-water mark was written"
+            lane = _Gate(pub._lane_conns[0].put_many)
+            pub._lane_conns = [_GatedLane(c, lane)
+                               for c in pub._lane_conns]
+            sc.step(now=t)                  # the next window's orders
+            t = sc._next_epoch
+            assert lane.entered.wait(30), "no window was published"
+            assert pub.inflight > 0 and pub._hwm_done < pub._hwm_want
+            t_kill = time.monotonic()
+            fl.kill_store_leader()
+            lane.open()
+            hwm.open()
+            landed = pub.flush(timeout=bound)
+            flush_s = time.monotonic() - t_kill
+            end = fl.drive(t, t + 4, stall_timeout=90.0)
+            recovery_s = fl.end_passed_at - t_kill
+            timeouts = fl.quiesce_publishers(timeout=bound)
+        finally:
+            fl.close()
+    assert landed and flush_s <= bound, (
+        f"flush landed={landed} after {flush_s:.1f}s "
+        f"(inflight {pub.inflight}, hwm {pub._hwm_done} of "
+        f"{pub._hwm_want})")
+    assert fl.flush_timeouts == [] and timeouts == []
+    assert recovery_s <= bound and end >= t + 4
+    assert pub._hwm_done >= pub._hwm_want

@@ -499,3 +499,42 @@ def test_trace_bench_on_the_card_at_the_tier1_size(cuda):
     assert res["trace_overhead_on_p99_ms"] > 0
     assert res["trace_overhead_off_p99_ms"] > 0
     assert counts["bid_argmin"] > 0 and counts["fanout_add"] > 0, counts
+
+
+def test_the_demo_runs_its_scheduler_on_the_card(cuda, tmp_path):
+    """``cronsun_tpu_torch.demo`` with no ``--device`` plans on the card:
+    its seeded jobs run (the Common one on both agents), only the demo's
+    pid holds the card's device file, and SIGTERM ends it with exit 0 and
+    the summary line."""
+    import re
+    import signal
+    import socket
+    import time
+    from chip_smoke import Proc, WebClient, card_device_files, \
+        check_demo_runs
+    conf = tmp_path / "conf.json"
+    conf.write_text('{"job_capacity": 2048, "node_capacity": 64, '
+                    '"window_s": 2}')
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    demo = Proc("cronsun_tpu_torch.demo", "--nodes", "2", "--port",
+                str(port), "--conf", str(conf))
+    try:
+        deadline = time.monotonic() + 300
+        while not any("demo up" in ln for ln in demo.lines):
+            demo.check_alive()
+            assert time.monotonic() < deadline, demo.output()
+            time.sleep(0.1)
+        assert card_device_files(demo.p.pid)
+        web = WebClient(f"127.0.0.1:{port}")
+        kinds = {j["id"]: j["kind"] for j in web.call("GET", "/v1/jobs")}
+        time.sleep(14)
+        t_read = time.time()
+        records = web.call("GET", "/v1/logs?pageSize=500")["list"]
+        check_demo_runs(records, kinds, ["node-0", "node-1"], 5, t_read)
+        assert demo.stop(signal.SIGTERM) == 0
+        assert any(re.fullmatch(r"executed \d+ runs across 2 nodes\n", ln)
+                   for ln in demo.lines), demo.output()
+    finally:
+        demo.stop(signal.SIGKILL, timeout=30)

@@ -2,9 +2,12 @@
 against the JAX package's, on the CPU.
 
 Each case runs one real command through both executors (fork and exec):
-the same success, exit code, captured output and error.  Only on the CPU:
-on the card every drill and the trace bench run an instant executor
-instead, never a fork in a CUDA process.
+the same success, exit code, captured output and error.  The port spawns
+a run that switches no user without a ``preexec_fn`` (``start_new_session``
+makes it lead its own session, as the JAX executor's ``os.setsid`` does),
+so CPython can vfork: a fork copies the page tables of a process holding a
+CUDA context, which is slow (the demo's agents run in the scheduler's
+process on the card).
 """
 
 import pytest
@@ -27,6 +30,10 @@ CASES = {
     "empty": ("", {}),
     "unknown_user": ("echo hi", {"user": "no-such-user-xyz"}),
     "timeout": ("sh -c 'sleep 30'", {"timeout": 1}),
+    "session_leader": ("python3 -c 'import os; print(os.getsid(0) == "
+                       "os.getpid())'", {}),
+    "timeout_kills_the_group": ("sh -c 'sleep 30 & sleep 30'",
+                                {"timeout": 1}),
 }
 
 
@@ -59,3 +66,19 @@ def test_retries_match(tmp_path):
         out.append((outcome(ok), outcome(failed), slept))
     assert out[1] == out[0]
     assert out[0][0][4] == 1 and out[0][1][4] == 2
+
+
+def test_a_run_with_no_user_is_spawned_without_a_preexec_fn(monkeypatch):
+    import subprocess
+    seen = []
+    real = subprocess.Popen
+
+    class Recording(real):
+        def __init__(self, *a, **kw):
+            seen.append((kw.get("preexec_fn"), kw.get("start_new_session")))
+            super().__init__(*a, **kw)
+    monkeypatch.setattr(subprocess, "Popen", Recording)
+    got = PortExecutor().run_once("python3 -c 'import os; "
+                                  "print(os.getsid(0) == os.getpid())'")
+    assert got.output.strip() == "True"
+    assert seen == [(None, True)]

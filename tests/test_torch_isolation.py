@@ -57,10 +57,38 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.web.slo, cronsun_tpu_torch.web.ui, "
             "cronsun_tpu_torch.web.cache, cronsun_tpu_torch.web.sessions, "
             "cronsun_tpu_torch.bin.store, cronsun_tpu_torch.bin.logd, "
-            "cronsun_tpu_torch.bin.node, cronsun_tpu_torch.bin.web; "
+            "cronsun_tpu_torch.bin.node, cronsun_tpu_torch.bin.web, "
+            "cronsun_tpu_torch.bin.ctl, cronsun_tpu_torch.demo, "
+            "cronsun_tpu_torch.scripts.bench_store, "
+            "cronsun_tpu_torch.scripts.bench_dispatch, "
+            "cronsun_tpu_torch.scripts.bench_query, "
+            "cronsun_tpu_torch.scripts.bench_push; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+HOST_MODULES = ("cronsun_tpu_torch.bin.ctl", "cronsun_tpu_torch.bin.store",
+                "cronsun_tpu_torch.bin.logd", "cronsun_tpu_torch.bin.node",
+                "cronsun_tpu_torch.bin.web",
+                "cronsun_tpu_torch.scripts.bench_store",
+                "cronsun_tpu_torch.scripts.bench_dispatch",
+                "cronsun_tpu_torch.scripts.bench_query",
+                "cronsun_tpu_torch.scripts.bench_push")
+
+
+@pytest.mark.parametrize("mod", HOST_MODULES)
+def test_a_host_process_module_loads_no_torch(mod):
+    """The processes that do no device work (the CLI, the store, result
+    store, agent and web launchers, the host benches and their children)
+    start without torch; ``cronsun_tpu_torch.resolve_device`` still
+    resolves, lazily."""
+    code = (f"import sys, {mod}; assert 'torch' not in sys.modules; "
+            "import cronsun_tpu_torch as p; "
+            "assert p.resolve_device('cpu').type == 'cpu'")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
