@@ -226,8 +226,9 @@ Phases, each printing one JSON line:
    most once and each Common one on all four nodes (``check_demo_runs``);
    the compute apps hold more MiB than before and the demo's pid holds
    the card's device file, the CLI's does not; SIGTERM: exit 0 and the
-   ``executed N runs across 4 nodes`` line; K1 and K2 launched, the kept
-   calls equal to plain.  The processes' logs go to ``demo_<name>.log``
+   ``executed N runs across M nodes`` line, N at least the runs read and
+   M in 1..4 (the nodes of the sink's newest 50 records); K1 and K2
+   launched, the kept calls equal to plain.  The processes' logs go to ``demo_<name>.log``
    beside the other phases' (``OUT_DIR``).
 27. host_benches — the port's four host-plane benches at the shapes of
    their JAX smoke tests (``tests/test_bench_smoke.py``) on the Python
@@ -238,6 +239,16 @@ Phases, each printing one JSON line:
    poll viewers).  Each prints its JSON keys and result; no error row,
    and no process any of them starts holds the card's device file
    (``ChildContexts`` samples every descendant).
+28. bench_quick — the port's bench, ``cronsun_tpu_torch.scripts.bench
+   --quick``, in this process on the card (its in-process cells: the
+   stream-sync floor, K1 and K2 against plain at K = 2048, N = 10240 and
+   timed, configs 1-5 and the headline at 2^20 x 10240, W = 8; then its
+   quick subprocess planes), with the launch counts set to 0 before and
+   read after (``launches_bench``) and the kept calls held against plain
+   (as in 17-22).  Held: the result line has exactly ``bench.py``'s four
+   keys with a value above 0, ``kernels_equal``, every
+   ``*_fired_per_tick`` above 0, no ``*_error`` key but a native-agent
+   plane's.  The detail goes to ``chiprun_out/bench_detail_torch.json``.
 
 Then each phase's seconds, the kernels line, the nvidia-smi line, and as
 the last line
@@ -3491,8 +3502,13 @@ def phase_demo_ctl(nodes=DEMO_NODES, n_jobs=DEMO_JOBS, live_s=DEMO_LIVE_S):
         rc = demo.stop(signal.SIGTERM, timeout=120)
         summary = [ln for ln in demo.lines if ln.startswith("executed ")]
         import re
-        if rc != 0 or not summary or not re.fullmatch(
-                rf"executed \d+ runs across {nodes} nodes\n", summary[-1]):
+        # the demo counts the nodes of the sink's newest page of 50 records
+        # (as the reference's does), so with 200 jobs it may name fewer than
+        # ``nodes``; check_demo_runs above held every node's runs
+        m = summary and re.fullmatch(r"executed (\d+) runs across (\d+) "
+                                     r"nodes\n", summary[-1])
+        if rc != 0 or not m or int(m.group(1)) < len(records) \
+                or not 1 <= int(m.group(2)) <= nodes:
             raise AssertionError(f"demo_ctl: the demo exited {rc}:\n"
                                  f"{''.join(demo.lines[-40:])}")
         with open(child_out) as f:
@@ -3629,6 +3645,44 @@ def phase_host_benches():
     return seconds
 
 
+def phase_bench_quick(dev):
+    """The port's bench at ``--quick`` in this process (see the module
+    docstring, phase 28).  Returns the launch counts and the path checks."""
+    from cronsun_tpu_torch.scripts import bench
+    native = {p.error for p in bench.PLANES
+              if dict(p.env).get("BENCH_AGENT") == "native"}
+    cells = set()
+
+    def run(log):
+        detail, line = bench.run(True, dev, os.path.join(
+            OUT_DIR, "bench_detail_torch.json"))
+        cells.update(k for k in detail if k.startswith(
+            ("rtt_", "kernel", "c1_", "c2_", "c3_", "c4_", "c5_",
+             "headline_")))
+        return {**detail, "result_line": line}
+
+    def check(res, counts):
+        line = res["result_line"]
+        fired = {k: v for k, v in res.items()
+                 if k.endswith("_fired_per_tick")}
+        errors = {k: v for k, v in res.items()
+                  if k.endswith("_error") and k not in native}
+        need = {"result keys": set(line) == {"metric", "value", "unit",
+                                             "vs_baseline"},
+                "value > 0": line["value"] > 0,
+                "kernels_equal": res["kernels_equal"] is True,
+                "fired": len(fired) == 4 and all(v > 0
+                                                 for v in fired.values()),
+                "no error key": not errors}
+        if not all(need.values()):
+            raise AssertionError(f"bench_quick: {need}, errors {errors}")
+        _need_launched("bench_quick", counts, SINGLE_DEVICE_KERNELS)
+
+    return _run_bench_phase("bench_quick", run, check, lambda res: {
+        "result_line": res["result_line"],
+        **{k: res[k] for k in sorted(cells)}})
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--demo-child"]:
@@ -3678,9 +3732,10 @@ def main(argv=None) -> int:
     fleet = timed("process_fleet", phase_process_fleet)
     demo, demo_path = timed("demo_ctl", phase_demo_ctl)
     timed("host_benches", phase_host_benches)
+    bench_counts, bench_path = timed("bench_quick", phase_bench_quick, dev)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     bench_checks = [t for _, checked in benches.values() for t in checked
-                    ] + demo_path
+                    ] + demo_path + bench_path
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_armed"] = armed[r["name"]]
@@ -3692,6 +3747,7 @@ def main(argv=None) -> int:
             r[f"launches_{phase}"] = c[r["name"]]
         r["launches_process_fleet"] = fleet.get(r["name"], 0)
         r["launches_demo"] = demo.get(r["name"], 0)
+        r["launches_bench"] = bench_counts[r["name"]]
         if r["name"] == "bid_argmin_natural":
             # K1n's path is the 2-D mesh: its launches are that run's
             r["launches"] = mesh["2d_2x2"][r["name"]]

@@ -60,6 +60,12 @@ def main(argv=None):
     if device.type == "cuda":
         from .ops import _build
         _build.build()      # nvcc before the first window, not inside it
+    else:
+        # the plain planner issues many small ops; a pool of intra-op
+        # threads per op, against this process's agents and web and any
+        # other load on the host, made whole windows run seconds late
+        import torch
+        torch.set_num_threads(1)
 
     cfg = parse_conf(args.conf)
     ks = Keyspace(cfg.prefix)

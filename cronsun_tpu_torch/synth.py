@@ -133,12 +133,13 @@ def synth_table(J: int, fire_period_lo: int, fire_period_hi: int,
     return table_from_numpy(cols, device)
 
 
-def bench_mixed_specs(n: int = 10_000, seed: int = 0) -> list:
+def bench_mixed_specs(n: int = 10_000, seed: int = 0,
+                      rng: Optional[np.random.Generator] = None) -> list:
     """BASELINE config 2's mix of cron specs, generated by the loop of
-    ``bench.py:289-302`` from a fresh ``default_rng(seed)``: a fifth each of
-    ``@every`` 1-299 s, hourly at a random second, every k seconds, weekly
-    and monthly."""
-    rng = np.random.default_rng(seed)
+    ``bench.py:289-302`` from ``rng`` (default a fresh
+    ``default_rng(seed)``): a fifth each of ``@every`` 1-299 s, hourly at a
+    random second, every k seconds, weekly and monthly."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     mixed = []
     for i in range(n):
         r = i % 5

@@ -501,6 +501,33 @@ def test_trace_bench_on_the_card_at_the_tier1_size(cuda):
     assert counts["bid_argmin"] > 0 and counts["fanout_add"] > 0, counts
 
 
+def test_the_port_bench_cells_on_the_card(cuda):
+    """``cronsun_tpu_torch.scripts.bench``'s in-process cells at a small
+    size on the card: the kernels equal plain at the bench's kernel shape
+    and at the small one, every cell has its keys, and both kernels
+    launched on the planner path."""
+    from cronsun_tpu_torch.scripts import bench
+    rng = np.random.default_rng(0)
+    eq, _ = bench.kernel_inputs(rng, False, cuda)
+    assert [bench.kernels_equal(*t[1:]) for t in eq] == [True, True]
+    small = bench.Shapes(
+        k_eq=256, n_eq=1024, n_wide=2048, c2_specs=1000,
+        ladders=(("c3_10kx1k", 2000, 256, 0.5, 1 << 20, 2048),
+                 ("c4_100kx1k", 4000, 256, 0.2, 64, 4096),
+                 ("c5_1Mx10k", 16384, 1024, 0.02, 1 << 20, 4096)),
+        headline_jobs=16384, headline_nodes=1024, headline_bucket=4096,
+        sla=(2048, 2048))
+    k.reset_launch_counts()
+    detail, p99 = bench.run_cells(True, cuda, small)
+    counts = k.launch_counts()
+    assert detail["kernels_equal"] is True and p99 > 0
+    assert detail["kernel_bid_pallas_ms"] > 0
+    assert detail["kernel_fanout_pallas_ms"] > 0
+    assert all(detail[f"{name}_fired_per_tick"] > 0
+               for name, *_ in small.ladders)
+    assert counts["bid_argmin"] > 0 and counts["fanout_add"] > 0, counts
+
+
 def test_the_demo_runs_its_scheduler_on_the_card(cuda, tmp_path):
     """``cronsun_tpu_torch.demo`` with no ``--device`` plans on the card:
     its seeded jobs run (the Common one on both agents), only the demo's

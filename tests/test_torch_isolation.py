@@ -62,7 +62,8 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.scripts.bench_store, "
             "cronsun_tpu_torch.scripts.bench_dispatch, "
             "cronsun_tpu_torch.scripts.bench_query, "
-            "cronsun_tpu_torch.scripts.bench_push; "
+            "cronsun_tpu_torch.scripts.bench_push, "
+            "cronsun_tpu_torch.scripts.bench; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cronsun_tpu')]; "
             "assert not bad, bad")
