@@ -100,6 +100,15 @@ Phases, each printing one JSON line:
    from the dead leader's mark (or an overflow re-plan), and neither
    leader skipped a second.  SIGTERM stops the survivor: exit 0, and its
    logged launch counts of both kernels above 0 (``launches_launcher``).
+   The first process runs with ``--profile-port``: while it leads, a
+   thread of this script takes one ``LAUNCHER_CAPTURE_MS`` capture
+   (``stack=0``) over HTTP, opened a second before one of its steps, and
+   the trace must hold device events of both kernels and the ranges
+   ``cronsun.plan.dispatch``, ``cronsun.fire_mask`` and
+   ``cronsun.assign`` on threads other than the server's.  Printed
+   (``launcher_capture``): the gzip bytes, the seconds from the session's
+   end to the file, the device's busy share over the window, the top five
+   device ops and the top five host ranges.
 14. mesh_equivalence — the mesh planners with every shard on the card
    (``cuda:0``) against the same planners on the CPU, from phase 5's
    seeded state (65536 jobs x 1024 nodes, W = 4,
@@ -314,6 +323,9 @@ SERVICE_NOW = T0
 # (seconds)
 LAUNCHER_WINDOWS = 4
 LAUNCHER_CKPT_INTERVAL = 6
+LAUNCHER_CAPTURE_MS = 2000
+LAUNCHER_RANGES = ("cronsun.plan.dispatch", "cronsun.fire_mask",
+                   "cronsun.assign")
 # the kernels a single-device planner launches (K1n runs on the 2-D mesh)
 SINGLE_DEVICE_KERNELS = ("bid_argmin", "fanout_add")
 # the mesh phases: windows each mesh planner plans on the card and on the
@@ -1801,6 +1813,59 @@ def _check_due(fleet, lo, hi, where):
     return len(due)
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launcher_capture(port, start_at, into):
+    """Thread body: one ``LAUNCHER_CAPTURE_MS`` capture of the scheduler
+    process serving ``port``, requested at wall-clock ``start_at``, its
+    events and info put into ``into`` (or the exception under ``error``)."""
+    from cronsun_tpu_torch.scripts.profile_sched import fetch_capture
+    time.sleep(max(0.0, start_at - time.time()))
+    try:
+        into["events"], into["info"] = fetch_capture(
+            "127.0.0.1", port, LAUNCHER_CAPTURE_MS, timeout=300)
+    except Exception as e:  # noqa: BLE001 — judged by check_launcher_capture
+        into["error"] = e
+
+
+def check_launcher_capture(cap, node_id) -> dict:
+    """The capture holds both kernels' device events and the planner's
+    ranges on threads other than the server's; returns the line to print."""
+    from cronsun_tpu_torch.scripts.profile_sched import capture_summary
+    if "error" in cap or "info" not in cap:
+        raise AssertionError(f"{node_id}'s capture failed: "
+                             f"{cap.get('error', 'no answer')!r}")
+    info, events = cap["info"], cap["events"]
+    summary = capture_summary(events, LAUNCHER_CAPTURE_MS)
+    kernels = {}
+    for e in events:
+        if e.cat == "kernel":
+            for k in ("bid_argmin_kernel", "fanout_add_kernel"):
+                if k in e.key:
+                    kernels[k] = kernels.get(k, 0) + 1
+    if len(kernels) != 2:
+        raise AssertionError(f"{node_id}'s capture lacks a kernel's device "
+                             f"events: {kernels}")
+    threads = summary.pop("range_threads")
+    for r in LAUNCHER_RANGES:
+        tids = threads.get(r, [])
+        if not tids or info["server_tid"] in tids:
+            raise AssertionError(f"{node_id}'s capture: range {r} on "
+                                 f"threads {tids}, the server's "
+                                 f"{info['server_tid']}")
+    return {"phase": "launcher_capture", "of": node_id,
+            "ms": LAUNCHER_CAPTURE_MS, "gz_bytes": info["gz_bytes"],
+            "export_s": info["export_s"], "request_s": info["request_s"],
+            "events": len(events), "kernel_events": kernels,
+            "range_threads": {r: threads[r] for r in LAUNCHER_RANGES},
+            **summary}
+
+
 def phase_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES, W=SERVICE_WINDOW,
                    windows=LAUNCHER_WINDOWS):
     """Two scheduler processes on the card against the port's TCP store,
@@ -1868,7 +1933,9 @@ def phase_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES, W=SERVICE_WINDOW,
 
         # the leader cold-loads; the standby starts once the leader's first
         # checkpoint is on disk, so its start restores it
-        procs["sched-a"] = SchedProc(addr, conf, "sched-a")
+        prof_port = free_port()
+        procs["sched-a"] = SchedProc(addr, conf, "sched-a", "--profile-port",
+                                     str(prof_port))
         pump(lambda: procs["sched-a"].ready_s is not None, 300, "sched-a READY")
         pump(lambda: leader() == "sched-a", 60, "sched-a leading")
         pump(lambda: os.path.exists(os.path.join(ckpt, "sched.ckpt")), 120,
@@ -1876,11 +1943,27 @@ def phase_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES, W=SERVICE_WINDOW,
         procs["sched-b"] = SchedProc(addr, conf, "sched-b")
         pump(lambda: procs["sched-b"].ready_s is not None, 300, "sched-b READY")
         out["ready_s"] = {k: p.ready_s for k, p in procs.items()}
+        if leader() != "sched-a":
+            raise AssertionError(f"{leader()} leads before the capture")
 
-        # before the kill: `windows` leader windows, each due second once
+        # before the kill: `windows` leader windows, each due second once;
+        # the leader's capture is taken while they are pumped
+        capture = {}
+        # the leader steps 1.5 s before its high-water mark (the service
+        # loop plans ahead) and is idle between steps: the capture opens a
+        # second before a step
+        start_at = hwm() - 2.5
+        while start_at < time.time() + 0.2:
+            start_at += W
+        cap_thread = threading.Thread(target=launcher_capture,
+                                      args=(prof_port, start_at, capture),
+                                      daemon=True)
+        cap_thread.start()
         pump(lambda: agents.min_ep is not None
              and hwm() >= agents.min_ep + windows * W, 60 + 2 * windows * W,
              f"{windows} leader windows")
+        pump(lambda: not cap_thread.is_alive(), 300, "the leader's capture")
+        emit(check_launcher_capture(capture, "sched-a"))
         lo, hi = agents.min_ep, hwm()
         t = time.perf_counter()
         pump(lambda: time.perf_counter() > t + 1.0, 10, "in-flight orders")
@@ -2141,7 +2224,6 @@ def phase_mesh_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES,
     counts."""
     import shutil
     import signal
-    import socket
     import tempfile
 
     from cronsun_tpu_torch.core import Keyspace
@@ -2167,9 +2249,7 @@ def phase_mesh_launcher(n_jobs=SERVICE_JOBS, n_nodes=SERVICE_NODES,
             json.dump({"window_s": W, "job_capacity": n_jobs,
                        "node_capacity": n_nodes,
                        "log_db": os.path.join(tmp, "unused.db")}, f)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        coord = f"127.0.0.1:{free_port()}"
         mesh = ("--mesh", "2", "--mesh-hosts", "2", "--mesh-coordinator",
                 coord)
         procs["mesh-leader"] = SchedProc(addr, conf, "mesh-leader", *mesh,
@@ -3400,14 +3480,11 @@ def phase_demo_ctl(nodes=DEMO_NODES, n_jobs=DEMO_JOBS, live_s=DEMO_LIVE_S):
     (see the module docstring, phase 26).  Returns its launch counts and
     path checks."""
     import shutil
-    import socket
     import tempfile
     tmp = tempfile.mkdtemp(prefix="cronsun-demo-")
     session = os.path.join(tmp, "session")
     child_out = os.path.join(tmp, "demo.json")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     url = f"http://127.0.0.1:{port}"
     out = {"phase": "demo_ctl", "nodes": nodes, "jobs": n_jobs,
            "live_s": live_s}

@@ -15,7 +15,10 @@ through the leader lease and a shared ``checkpoint_dir``.  It differs in:
   ``tcp://<--mesh-coordinator>`` (rank 0 hosts the rendezvous); D must
   divide over the N processes.
 - on the card the kernels are built before ``READY``;
-- ``--profile-port`` exits 2 (the port has no profiler server);
+- ``--profile-port P`` serves torch.profiler captures over HTTP
+  (``GET /capture?ms=N[&stack=1]``, a gzip Chrome trace; see
+  ``cronsun_tpu_torch/profile_server.py``) where the reference starts
+  ``jax.profiler.start_server``;
 - on exit the process logs the kernels' launch counts.
 """
 
@@ -95,7 +98,10 @@ def main(argv=None) -> int:
                     help="where the planner runs (default: the CUDA card; "
                          "cpu runs the plain PyTorch path)")
     ap.add_argument("--profile-port", type=int, default=0, metavar="PORT",
-                    help="refused: the port has no profiler server")
+                    help="serve live torch.profiler captures over HTTP "
+                         "(GET /capture?ms=N[&stack=1] answers a gzip "
+                         "Chrome trace of every thread) so tick/assign "
+                         "spans can be captured live; 0 disables")
     ap.add_argument("--mesh", type=int, default=0, metavar="D",
                     help="shard the planner over a D-device jobs mesh "
                          "(0 = single device)")
@@ -153,10 +159,6 @@ def main(argv=None) -> int:
         # the pid disambiguates, operators wanting stable instance
         # labels set explicit --node-id
         args.node_id = f"scheduler-p{args.partition}-{os.getpid()}"
-    if args.profile_port:
-        print("error: --profile-port: the torch port has no profiler "
-              "server", file=sys.stderr)
-        return 2
     if args.mesh2d is not None:
         try:
             dj, dn = (int(x) for x in args.mesh2d.lower().split("x"))
@@ -198,6 +200,17 @@ def main(argv=None) -> int:
         # inside the step loop
         from ..ops import _build
         log.infof("kernels built in %.2f s on %s", _build.build(), device)
+    profiler = None
+    if args.profile_port:
+        # before the rendezvous: a rank that fails after it wedges the rest
+        from ..profile_server import ProfileServer
+        try:
+            profiler = ProfileServer(args.profile_port, device)
+        except OSError as e:
+            print(f"error: --profile-port {args.profile_port}: "
+                  f"{e.strerror or e}", file=sys.stderr)
+            return 1
+        log.infof("torch profiler server on :%d", args.profile_port)
     if args.mesh_hosts > 1:
         # the global mesh assembles every process's local shards; its
         # collectives run over gloo on host tensors
@@ -247,6 +260,8 @@ def main(argv=None) -> int:
         steps = run_worker(planner)
         log.infof("mesh worker released after %d plan steps", steps)
         _log_launch_counts()
+        if profiler is not None:
+            profiler.stop()
         # join gloo's threads now: left to interpreter teardown, the
         # process group's destructor can abort the exit ("terminate
         # called without an active exception", exit -6)
@@ -336,6 +351,8 @@ def main(argv=None) -> int:
                   _log_launch_counts, store.close)
     else:
         events.on(events.EXIT, sched.stop, _log_launch_counts, store.close)
+    if profiler is not None:
+        events.on(events.EXIT, profiler.stop)
     if health is not None:
         events.on(events.EXIT, health.stop)
     if watcher:

@@ -360,6 +360,56 @@ def test_launcher_on_the_card_publishes_and_exits_clean(cuda, tmp_path):
         server.stop()
 
 
+def test_profile_server_on_the_card_records_both_kernels(cuda):
+    """A capture of ``ProfileServer(0, "cuda")`` while a worker thread plans
+    card windows holds both kernels' device events and the planner's
+    ranges on the worker's thread; the plans equal the CPU planner's."""
+    import threading
+    import time
+    from torch.autograd import profiler as autograd_profiler
+    from cronsun_tpu_torch.profile_server import ProfileServer
+    from cronsun_tpu_torch.scripts.profile_sched import (capture_summary,
+                                                         fetch_capture)
+    from cronsun_tpu_torch.ops import _build
+    _build.build()      # not inside the capture, as the launcher does
+    state = synth_state(8192, 320, seed=3, node_cap=3, empty_rows=0.05)
+    gpu = planner_from_numpy(state, device=cuda, max_fire_bucket=2048)
+    cpu = planner_from_numpy(state, device="cpu", max_fire_bucket=2048)
+    plans, failed = [], []
+
+    def plan():
+        try:
+            deadline = time.monotonic() + 60
+            while not autograd_profiler._is_profiler_enabled:
+                assert time.monotonic() < deadline, "no capture began"
+                time.sleep(0.001)
+            for i in range(3):
+                plans.append(gpu.gather_window(
+                    gpu.plan_window_async(T0 + 4 * i, 4)))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failed.append(e)
+    srv = ProfileServer(0, cuda)
+    worker = threading.Thread(target=plan)
+    try:
+        worker.start()
+        events, info = fetch_capture("127.0.0.1", srv.port, 3000)
+        worker.join(60)
+    finally:
+        srv.stop()
+    assert not worker.is_alive() and not failed, failed
+    kernels = {e.key for e in events if e.cat == "kernel"}
+    for name in ("bid_argmin_kernel", "fanout_add_kernel"):
+        assert any(name in k for k in kernels), kernels
+    threads = capture_summary(events, 3000)["range_threads"]
+    for name in ("cronsun.plan.dispatch", "cronsun.fire_mask",
+                 "cronsun.assign"):
+        assert threads.get(name) == [worker.native_id], threads
+    for i in range(3):
+        for x, y in zip(plans[i], cpu.plan_window(T0 + 4 * i, 4)):
+            assert np.array_equal(x.fired, y.fired)
+            assert np.array_equal(x.assigned, y.assigned)
+
+
 def test_a_fleet_of_port_processes_runs_its_scheduler_on_the_card(
         cuda, tmp_path):
     """Store, two-shard logd, scheduler (no ``--device``: the card), an

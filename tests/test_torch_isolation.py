@@ -29,6 +29,7 @@ def test_import_loads_no_jax():
             "cronsun_tpu_torch.sched.partition, "
             "cronsun_tpu_torch.sched.publisher, "
             "cronsun_tpu_torch.bin.sched, cronsun_tpu_torch.bin.common, "
+            "cronsun_tpu_torch.profile_server, "
             "cronsun_tpu_torch.conf, cronsun_tpu_torch.health, "
             "cronsun_tpu_torch.events, cronsun_tpu_torch.tlsutil, "
             "cronsun_tpu_torch.store.remote, cronsun_tpu_torch.store.wire, "

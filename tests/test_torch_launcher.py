@@ -32,7 +32,6 @@ MESH_FLAG_ERRORS = [
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--profile-port", "9999"], "no profiler server"),
     *MESH_FLAG_ERRORS,
     (["--mesh-hosts", "2", "--mesh", "1"], "--mesh-hosts requires"),
     (["--mesh-hosts", "2", "--mesh", "3"], "do not divide over"),

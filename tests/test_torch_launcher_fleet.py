@@ -8,16 +8,22 @@ cpu`` and a JAX agent, crossing process boundaries over TCP.
   resume, no scheduled second runs twice, ``skipped_seconds_total`` 0;
 - a JAX leader and a port standby share one ``checkpoint_dir``: SIGKILL
   the JAX leader, the port takes over with the same guarantees (a rolling
-  migration from the JAX package to the port).
+  migration from the JAX package to the port);
+- a port scheduler with ``--profile-port`` serves a capture while it steps
+  (the planner's ranges from its own threads), and each second still runs
+  once.
 """
 
+import gzip
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 from cronsun_tpu.core import Keyspace
 from cronsun_tpu.core.models import Job, JobRule
@@ -98,10 +104,11 @@ class _Fleet:
         self.procs.append(p)
         return p
 
-    def sched(self, mod, node_id):
+    def sched(self, mod, node_id, *extra):
         return self.spawn(mod, "--store", self.addr, "--conf", self.conf,
                           "--node-id", node_id,
-                          *(["--device", "cpu"] if mod == PORT_SCHED else []))
+                          *(["--device", "cpu"] if mod == PORT_SCHED else []),
+                          *extra)
 
     def agent(self, node_id="w1"):
         p = self.spawn("cronsun_tpu.bin.node", "--store", self.addr,
@@ -234,5 +241,43 @@ def test_jax_leader_to_port_standby_takeover(tmp_path):
         assert new == "port-sched"
         assert "checkpoint RESTORED" in survivor.output(), survivor.output()
         assert survivor.stop() == 0, survivor.output()
+    finally:
+        fleet.close()
+
+
+def test_port_sched_serves_a_profile_capture_while_it_steps(tmp_path):
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    fleet = _Fleet(tmp_path)
+    try:
+        sched = fleet.sched(PORT_SCHED, "port-sched", "--profile-port",
+                            str(port))
+        assert sched.ready() == "port-sched"
+        assert f"torch profiler server on :{port}" in sched.output()
+        fleet.agent()
+        fleet.put_job()
+        fleet.wait_runs(2, timeout=60)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/capture?ms=3000",
+                timeout=120) as r:
+            assert r.headers["Content-Type"] == "application/gzip"
+            server_tid = int(r.headers["X-Capture-Thread"])
+            events = json.loads(gzip.decompress(r.read()))["traceEvents"]
+        tids = {}
+        for e in events:
+            if e.get("cat") == "user_annotation":
+                tids.setdefault(e["name"], set()).add(e["tid"])
+        for name in ("cronsun.plan.dispatch", "cronsun.fire_mask",
+                     "cronsun.assign"):
+            assert tids.get(name) and server_tid not in tids[name], tids
+        n = len(fleet.scheduled())
+        fleet.wait_runs(n + 2, timeout=60)
+        secs = fleet.scheduled()
+        assert len(secs) == len(set(secs)), secs
+        assert sched.stop() == 0, sched.output()
+        out = sched.output()
+        assert "profile capture: 3000 ms" in out and \
+            "kernel launch counts" in out, out
     finally:
         fleet.close()
