@@ -1,0 +1,12 @@
+"""Device ms a planned second of the operations launched inside the
+``cronsun.fanout`` range: the Common fan-out (``ops.assign``, K2), in the traced block."""
+
+RANGE = "cronsun.fanout"
+
+
+def read(ctx):
+    tr = getattr(ctx, "trace", None)
+    if tr is None or not getattr(ctx, "traced_seconds", 0):
+        return None
+    s = tr.device_s_in(RANGE)
+    return s * 1e3 / ctx.traced_seconds if s else None
