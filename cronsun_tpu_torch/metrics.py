@@ -46,6 +46,18 @@ class OpStats:
                 if dt > ent[2]:
                     ent[2] = dt
 
+    def add(self, op: str, n: int, total_ns: int, max_ns: int) -> None:
+        """``n`` ops timed elsewhere: their summed and longest ns."""
+        with self._lock:
+            ent = self._ns.get(op)
+            if ent is None:
+                self._ns[op] = [n, total_ns, max_ns]
+            else:
+                ent[0] += n
+                ent[1] += total_ns
+                if max_ns > ent[2]:
+                    ent[2] = max_ns
+
     def count(self, op: str, n: int = 1) -> None:
         """Count-only stat (no timing): contention ticks, frame/event
         tallies, per-record tallies under a bulk op."""

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .kernels import bid_argmin, bid_block_plain, fanout_add, unpack_tile
+from .spans import SYNC, span
 
 __all__ = ["assign", "unpack_tile", "bid_block_plain", "choose_impl",
            "local_bid_demand", "compact_demand", "scatter_demand",
@@ -62,7 +63,8 @@ def _segment_totals(sorted_key, first, in_range, *vals_sorted):
     ``first``): the keys, and for each of ``vals_sorted`` its sum over each
     segment as an f64 running sum differenced at the segment's end
     (order-free on the card, and exact for integer values).  Segments whose
-    key is not ``in_range`` are dropped."""
+    key is not ``in_range`` are dropped.  Each boolean selection runs a
+    ``nonzero``, which waits for the stream: a ``cronsun.sync`` span."""
     K = sorted_key.shape[0]
     is_last = torch.ones(K, dtype=torch.bool, device=sorted_key.device)
     is_last[:-1] = sorted_key[1:] != sorted_key[:-1]
@@ -71,8 +73,12 @@ def _segment_totals(sorted_key, first, in_range, *vals_sorted):
     for vals in vals_sorted:
         v = vals.to(torch.float64)
         cs = torch.cumsum(v, 0)
-        tots.append((cs - (cs[first] - v[first]))[is_last])
-    return sorted_key[is_last], tots
+        seg = cs - (cs[first] - v[first])
+        with span(SYNC):
+            tots.append(seg[is_last])
+    with span(SYNC):
+        keys = sorted_key[is_last]
+    return keys, tots
 
 
 def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
@@ -129,14 +135,16 @@ def _assign_excl(valid, elig_packed, load, rem_cap, cost, rounds: int,
     cost = cost.to(torch.float32)
     assigned = torch.full((K,), -1, dtype=torch.int32, device=valid.device)
     for r in range(rounds):
-        load_eff = torch.where(rem_cap > 0, load, float("inf"))
-        active = valid & (assigned < 0)
-        best, choice = bid_argmin(elig_packed, load_eff, rows=rows,
-                                  active=active)
-        cand = active & torch.isfinite(best)
-        accept, load, rem_cap = waterfill_accept(
-            cand, choice, cost, load, rem_cap, r == rounds - 1)
-        assigned = torch.where(accept, choice, assigned)
+        with span("cronsun.assign.bid"):
+            load_eff = torch.where(rem_cap > 0, load, float("inf"))
+            active = valid & (assigned < 0)
+            best, choice = bid_argmin(elig_packed, load_eff, rows=rows,
+                                      active=active)
+            cand = active & torch.isfinite(best)
+        with span("cronsun.assign.accept"):
+            accept, load, rem_cap = waterfill_accept(
+                cand, choice, cost, load, rem_cap, r == rounds - 1)
+            assigned = torch.where(accept, choice, assigned)
     return assigned, load, rem_cap
 
 

@@ -19,6 +19,11 @@ waits for the stream (three per bid round).  The outputs of the whole window
 are packed into one int32 block and copied to pinned host memory behind an
 event, which :meth:`TickPlanner.gather_window` waits on.
 
+Every stage of the path is a span of :mod:`.spans` (``cronsun.plan.dispatch``,
+``cronsun.fire_mask``, ..., ``cronsun.plan.gather``), recorded in the
+planner's :attr:`TickPlanner.spans` per window, and a profiler range while
+a profiler runs; each call that waits for the stream is a ``cronsun.sync``.
+
 The setters, however, write the live tensors in place (``update_rows``
 scatters into the table, ``set_eligibility_rows`` into ``elig``), and a
 window is issued op by op: the fire mask reads the table once, the dep arm
@@ -52,13 +57,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..device import DeviceLike, resolve_device
 from .assign import _assign_excl, _fanout_load, choose_impl
 from .deps import NEVER, dep_ready
 from .schedule_table import (ScheduleTable, build_table, column_numpy,
                              column_tensor, table_to_numpy, update_rows)
+from .spans import SYNC, SpanRecorder, Window, span
 from .tenancy import TenantOrder, admit
 from .tick import _fire_mask, window_field_matrix
 
@@ -153,7 +158,7 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
     int32 words when node columns fit int16 (A = ceil(kx / 2)), else int32
     (A = kx) — and, with tenants, the per-tenant throttled then shed
     counts.  ``last_fire``/``tokens`` are None for a disarmed arm."""
-    with record_function("cronsun.fire_mask"):
+    with span("cronsun.fire_mask"):
         fire_w = _fire_mask(table, *fields_w.unbind(1)).T.contiguous()  # [W, J]
     n_cols = elig.shape[1] * 32
     adt = torch.int16 if n_cols <= 32767 else torch.int32
@@ -166,31 +171,31 @@ def _plan_window_step(table: ScheduleTable, fields_w: torch.Tensor,
     for w, fire_col in enumerate(fire_w):
         time_col = fire_col
         if deps is not None:
-            with record_function("cronsun.deps"):
+            with span("cronsun.deps"):
                 dep_f, consume, round_max = dep_ready(
                     table, deps.succ, deps.fail, deps.block, last_fire)
                 fire_col = fire_col | dep_f
         if tenants is not None:
-            with record_function("cronsun.tenants"):
+            with span("cronsun.tenants"):
                 admitted, tokens, thr, shed = admit(
                     fire_col, time_col, ex_p, tokens, tenants.rate,
                     tenants.burst, tenants.limited, tenants.weight, rem_cap,
                     tenants.order)
                 fire_col = fire_col & admitted
         if deps is not None:
-            with record_function("cronsun.deps"):
+            with span("cronsun.deps"):
                 # advance to the newest consumed upstream epoch, not just
                 # the tick; a throttled dep fire does not advance
                 eff = dep_f & fire_col if tenants is not None else dep_f
                 last_fire = torch.where(eff | consume,
                                         round_max.clamp(min=deps.t_rel[w]),
                                         last_fire)
-        with record_function("cronsun.compact"):
+        with span("cronsun.compact"):
             xidx, xvalid, xtotal = _compact(fire_col & exclusive, kx)
             cidx, cvalid, ctotal = _compact(fire_col & not_excl, kc)
-        with record_function("cronsun.fanout"):
+        with span("cronsun.fanout"):
             load = _fanout_load(elig, cvalid, cost[cidx], load, rows=cidx)
-        with record_function("cronsun.assign"):
+        with span("cronsun.assign"):
             assigned, load, rem_cap = _assign_excl(
                 xvalid, elig, load, rem_cap, cost[xidx], rounds, rows=xidx)
         a = assigned.to(adt)
@@ -282,6 +287,7 @@ class _WindowHandle:
     nt: int                  # tenant ids in the per-tenant counts, 0 if none
     out: torch.Tensor        # [W, 2 + kx + kc + A + 2 nt] int32 on the host
     ready: Optional[torch.cuda.Event]   # set when ``out`` has landed
+    window: Optional[Window] = None     # its spans (None for a warm-up)
 
 
 class TickPlanner:
@@ -356,6 +362,8 @@ class TickPlanner:
         # adaptive buckets' hysteresis counters they both touch
         self._bucket_mu = threading.Lock()
         self._warmed_single: set = set()
+        # the spans of the windows it planned, and their running totals
+        self.spans = SpanRecorder()
 
     # -- state maintenance (fixed-shape, in-place scatters) -----------------
 
@@ -603,7 +611,8 @@ class TickPlanner:
         window, None for a disarmed arm — without touching the planner's
         state.  The caller holds :meth:`issuing`."""
         fields = window_field_matrix(epoch_s, window_s, self.tz)
-        fields_w = torch.from_numpy(fields).to(self.device)
+        with span(SYNC):            # a pageable copy waits for the stream
+            fields_w = torch.from_numpy(fields).to(self.device)
         deps = tenants = None
         if self._dep_enabled:
             deps = _DepArm(self.dep_succ, self.dep_fail, self.dep_block,
@@ -649,13 +658,15 @@ class TickPlanner:
         with self._bucket_mu:
             kx = self._bx.size(sla_x)
             kc = self._bc.size(sla_c)
-        with record_function("cronsun.plan.dispatch"), self.issuing():
+        win = self.spans.window(epoch_s, window_s)
+        with span("cronsun.plan.dispatch", win), self.issuing():
             handle, self.load, self.rem_cap, last_fire, tokens = \
                 self._dispatch(epoch_s, window_s, kx, kc)
             if last_fire is not None:
                 self.dep_last_fire = last_fire
             if tokens is not None and sla_bucket is None:
                 self.tb_tokens = tokens
+        handle.window = win
         return handle
 
     def gather_window(self, handle: _WindowHandle):
@@ -664,32 +675,35 @@ class TickPlanner:
         Exclusive placements come first in ``fired``/``assigned``; Common
         fires follow with assigned = -1 (fan-out is the dispatcher's job)."""
         kx, kc = handle.kx, handle.kc
-        with record_function("cronsun.plan.gather"):
+        with span("cronsun.plan.gather", handle.window):
             if handle.ready is not None:
-                handle.ready.synchronize()
+                with span("cronsun.plan.gather.wait"):
+                    handle.ready.synchronize()
             o = handle.out.numpy()
-        W = o.shape[0]
-        a0 = 2 + kx + kc
-        a1 = a0 + ((kx + 1) // 2 if handle.adt == np.int16 else kx)
-        oa = np.ascontiguousarray(o[:, a0:a1]).view(handle.adt)[:, :kx]
-        ot = o[:, a1:].reshape(W, 2, handle.nt) if handle.nt else None
-        plans = []
-        for w in range(W):
-            xt, ct = int(o[w, 0]), int(o[w, 1])
-            nx, nc = min(xt, kx), min(ct, kc)
-            fired = np.concatenate([o[w, 2:2 + nx], o[w, 2 + kx:2 + kx + nc]])
-            assigned = np.concatenate(
-                [oa[w, :nx].astype(np.int32), np.full(nc, -1, np.int32)])
-            plans.append(TickPlan(
-                epoch_s=handle.epoch_s + w, fired=fired, assigned=assigned,
-                overflow=max(0, xt - kx) + max(0, ct - kc),
-                total_fired=xt + ct, n_excl=nx,
-                tenant_throttled=None if ot is None else ot[w, 0],
-                tenant_shed=None if ot is None else ot[w, 1]))
-        if W:
-            with self._bucket_mu:
-                self._bx.feed(int(o[:, 0].max()), W)
-                self._bc.feed(int(o[:, 1].max()), W)
+            W = o.shape[0]
+            a0 = 2 + kx + kc
+            a1 = a0 + ((kx + 1) // 2 if handle.adt == np.int16 else kx)
+            oa = np.ascontiguousarray(o[:, a0:a1]).view(handle.adt)[:, :kx]
+            ot = o[:, a1:].reshape(W, 2, handle.nt) if handle.nt else None
+            plans = []
+            for w in range(W):
+                xt, ct = int(o[w, 0]), int(o[w, 1])
+                nx, nc = min(xt, kx), min(ct, kc)
+                fired = np.concatenate([o[w, 2:2 + nx],
+                                        o[w, 2 + kx:2 + kx + nc]])
+                assigned = np.concatenate(
+                    [oa[w, :nx].astype(np.int32), np.full(nc, -1, np.int32)])
+                plans.append(TickPlan(
+                    epoch_s=handle.epoch_s + w, fired=fired,
+                    assigned=assigned,
+                    overflow=max(0, xt - kx) + max(0, ct - kc),
+                    total_fired=xt + ct, n_excl=nx,
+                    tenant_throttled=None if ot is None else ot[w, 0],
+                    tenant_shed=None if ot is None else ot[w, 1]))
+            if W:
+                with self._bucket_mu:
+                    self._bx.feed(int(o[:, 0].max()), W)
+                    self._bc.feed(int(o[:, 1].max()), W)
         return plans
 
     def plan_window(self, epoch_s: int, window_s: int,

@@ -64,6 +64,7 @@ from ..ops.eligibility import EligibilityBuilder, NodeUniverse
 from ..ops.planner import TickPlanner
 from ..ops.schedule_table import DEP_BROKEN, FRAMEWORK_EPOCH, \
     make_dep_row, make_row, _INACTIVE_ROW
+from ..ops.spans import SYNC
 from ..device import DeviceLike
 from ..store.memstore import CompactedError, DELETE, MemStore, PUT, \
     WatchLost
@@ -4422,6 +4423,7 @@ class SchedulerService:
             "watch_losses_total": self.stats["watch_losses"],
             "dispatches_total": self.stats["dispatches_total"],
             "steps_total": self.stats["steps_total"],
+            **self._planner_totals(),
             # lease watchdog health (per partition when partitioned —
             # the partition= label rides every series above)
             "lease_resigns_total": self.stats["lease_resigns_total"],
@@ -4510,6 +4512,25 @@ class SchedulerService:
                 for c in self._tenant_counters.values()),
             "tenant_shed_fires_total": sum(
                 c["shed_fires"] for c in self._tenant_counters.values()),
+        }
+
+    def _planner_totals(self) -> dict:
+        """The planner's running span totals (:mod:`..ops.spans`): host ms
+        launching windows, the stream waits on the dispatch path and their
+        ms, and the ms gathers waited for a window to land.  A planner
+        without spans (the mesh planners) reads 0."""
+        rec = getattr(self.planner, "spans", None)
+        t = rec.totals.snapshot() if rec is not None else {}
+
+        def get(name, key):
+            return t.get(name, {}).get(key, 0)
+        return {
+            "planner_dispatch_ms_total": get("cronsun.plan.dispatch",
+                                             "total_ms"),
+            "planner_syncs_total": get(SYNC, "count"),
+            "planner_sync_wait_ms_total": get(SYNC, "total_ms"),
+            "planner_gather_wait_ms_total": get("cronsun.plan.gather.wait",
+                                                "total_ms"),
         }
 
     def smear_snapshot(self) -> dict:

@@ -374,10 +374,13 @@ class Recorder:
 
     def __init__(self, p):
         self.events, self._ids = [], {}
+        # every handle is held, so no two of them share an id()
+        self._held = []
         dispatch, gather = p.plan_window_async, p.gather_window
 
         def plan_window_async(epoch_s, window_s, sla_bucket=None):
             h = dispatch(epoch_s, window_s, sla_bucket)
+            self._held.append(h)
             self._ids[id(h)] = len(self._ids)
             self.events.append(("dispatch", self._ids[id(h)],
                                 (epoch_s, window_s, sla_bucket)))
