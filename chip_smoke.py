@@ -24,27 +24,37 @@ Phases, each printing one JSON line:
    bitplane_ties=False)``, best and choice exactly: node blocks at col0 0,
    32 and 5120, past shared memory, W32 = 5 and 7, one row, all loads
    equal, all nodes closed, W32 = 1 to 3125, and buckets with ``rows``
-   and ``active``.
+   and ``active``.  The accept kernel waterfill_accept against
+   ``assign.waterfill_accept_plain``, accept, load, rem_cap and the
+   placements bit for bit (integer costs): K = 1 to 65536 over 10240
+   nodes (one pass of the block up to 16384, chunks past it), no
+   candidate, one node bid by every row, and 300000 nodes (a pass of
+   8192).
 4. kernel_times — on a synthetic tile at the main path's shape (K = 16384,
    N = 10240, no gather): each kernel's time (also timed back to back
    without a pre-filled stream, and with no row to work on), its plain
    version's time, the least time the card could take, and the kernels the
    card ran for one call (torch.profiler); K1n on the 2-D mesh
-   headline's per-shard node block (K = 8192, N = 5120, col0 5120).
+   headline's per-shard node block (K = 8192, N = 5120, col0 5120); the
+   accept kernel at K = 16384 and 2048 over N = 10240 (and on an empty
+   bucket, and at 65536 in chunks).
 5. plan_equivalence — TickPlanner on the card against TickPlanner on the CPU
    (plain path) from one seeded state at the config-sample shape (65536 jobs
    x 1024 nodes, W = 4): every TickPlan field, the final load and rem_cap
    identical.
 6. path_times — on the headline's planner, fresh from its seed and
    advanced ``PATH_WINDOWS`` windows (so the state does not depend on
-   ``--windows``), both kernels on inputs captured from the next second
+   ``--windows``), the kernels on inputs captured from the next second
    (the 1M-row table, each bid round's rows, active mask and load_eff; the
-   Common bucket's rows and weights), held against plain and timed, with a
+   Common bucket's rows and weights; each accept round's bids and node
+   state, and round 1's first 2048 bids, those with no candidate, and its
+   bids four times over, 65536), held against plain and timed, with a
    bound that counts only the rows read.
 7. headline — the north-star deployment, 2^20 jobs x 10240 nodes, W = 8,
    buckets (16384, 16384), rounds 2: 2 warm-up windows then ``--windows``
-   timed windows pipelined 2 deep, with the launch counts of both kernels
-   set to 0 just before and read just after; the plans are checked against
+   timed windows pipelined 2 deep, with the launch counts of the kernels
+   set to 0 just before and read just after (two accept launches a
+   planned second); the plans are checked against
    the numpy state (every fire due, every due row fired, every placement
    eligible).  One more window counts the index gathers per planned second.
 8. ``--profile`` only: a torch.profiler pass over a few headline windows,
@@ -550,6 +560,143 @@ def k1_bound(work):
     return bound_ms(n_bytes, K1_OPS_PER_BIT * bits + K1_OPS_PER_HASH * hashed)
 
 
+def _accept_inputs(K, N, seed, dev, cand_p=0.7, node_hi=None):
+    """(cand, choice, cost, load, rem_cap, assigned) on ``dev``: integer
+    costs 1-4 and loads under 50, bids crowding ``node_hi`` nodes."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cand = torch.rand(K, device=dev, generator=g) < cand_p
+    choice = torch.randint(0, node_hi or N, (K,), dtype=torch.int32,
+                           device=dev, generator=g)
+    cost = torch.randint(1, 5, (K,), device=dev, generator=g).float()
+    load = torch.randint(0, 50, (N,), device=dev, generator=g).float()
+    rem_cap = torch.randint(0, 4, (N,), dtype=torch.int32, device=dev,
+                            generator=g)
+    assigned = torch.randint(-1, N, (K,), dtype=torch.int32, device=dev,
+                             generator=g)
+    return cand, choice, cost, load, rem_cap, assigned
+
+
+def check_accept(name, args, is_final) -> dict:
+    """The accept kernel against ``assign.waterfill_accept_plain`` (and the
+    placements ``where(accept, choice, assigned)``) on ``args`` = (cand,
+    choice, cost, load, rem_cap, assigned) of integer costs and loads: bit
+    for bit, the inputs untouched."""
+    import torch
+    from cronsun_tpu_torch.ops import kernels as k
+    cand, choice, cost, load, rem_cap, assigned = args
+    if not (torch.equal(cost, cost.round())
+            and torch.equal(load, load.round())):
+        raise ValueError(f"accept {name}: integer costs and loads only")
+    before = [t.clone() for t in args]
+    got = k.waterfill_accept(cand, choice, cost, load, rem_cap, is_final,
+                             assigned)
+    bad, _ = accept_differs(args, is_final, got)
+    if bad:
+        raise AssertionError(f"accept {name}: {bad}")
+    if not all(torch.equal(a, b) for a, b in zip(args, before)):
+        raise AssertionError(f"accept {name}: an input was written")
+    return {"case": name, "K": int(cand.shape[0]), "N": int(load.shape[0]),
+            "is_final": bool(is_final), "candidates": int(cand.sum()),
+            "accepted": int(got[0].sum()),
+            "integer_costs": bool(torch.equal(cost, cost.round())),
+            "equal": True}
+
+
+def accept_differs(args, is_final, out) -> "tuple[str, float]":
+    """How the accept kernel's ``out`` (accept, load, rem_cap, assigned or
+    None) differs from ``assign.waterfill_accept_plain`` on ``args`` =
+    (cand, choice, cost, load, rem_cap, assigned or None), and the
+    placements from ``where(accept, choice, assigned)``: ("", max |load
+    error|) when it does not.  With integer costs and loads every sum either takes is exact
+    and all must be equal bit for bit.  Else the two round apart (the plain
+    chain's running cost is an f32 cumsum over the whole sorted bucket, the
+    kernel's an f64 sum within the node's run), so a verdict may differ
+    only where the quota test sits within that rounding of its boundary
+    (recomputed in f64), each node's capacity must lose exactly its
+    accepted bids, and each load gain their cost to within 1e-6."""
+    import torch
+    from cronsun_tpu_torch.ops import assign
+    cand, choice, cost, load, rem_cap, asg_in = args
+    acc, lo, cap, asg = out
+    if asg_in is not None and not torch.equal(
+            asg, torch.where(acc, choice, asg_in)):
+        return "placements differ from the verdicts", 0.0
+    ref = assign.waterfill_accept_plain(cand, choice, cost, load, rem_cap,
+                                        is_final)
+    exact = bool(torch.equal(cost, cost.round())
+                 and torch.equal(load, load.round()))
+    if exact:
+        for part, g, w in zip(("accept", "load", "rem_cap"), (acc, lo, cap),
+                              ref):
+            if not torch.equal(g, w):
+                return f"{part} differs from plain", 0.0
+        return "", 0.0
+    N = load.shape[0]
+    key = torch.where(cand, choice.to(torch.int64), N)
+    sk, order = torch.sort(key, stable=True)
+    w = torch.where(cand, cost, 0.0).double()
+    ws = w[order]
+    pos = torch.arange(len(sk), device=sk.device)
+    head = torch.ones_like(sk, dtype=torch.bool)
+    head[1:] = sk[1:] != sk[:-1]
+    first = torch.cummax(torch.where(head, pos, 0), 0).values
+    excl = torch.cumsum(ws, 0) - ws
+    cum = excl - excl[first]
+    ws32 = ws.float()
+    excl32 = torch.cumsum(ws32, 0) - ws32
+    cum32 = (excl32 - excl32[first]).double()   # the plain chain's
+    open_n = rem_cap > 0
+    level = ((torch.where(open_n, load, 0.0).double().sum() + w.sum())
+             / open_n.sum().clamp(min=1))
+    node_load = load.double()[sk.clamp(max=N - 1)]
+    # the plain chain's running-cost error, and a few f32 roundings of the
+    # test's terms
+    tol = (cum32 - cum).abs() + 2.0 ** -21 * (
+        level.abs() + node_load.abs() + cum.abs() + ws.abs())
+    near = torch.empty_like(head)
+    near[order] = (level - node_load - (cum + ws)).abs() <= tol
+    differ = acc != ref[0]
+    if bool((differ & ~near).any()):
+        return "a verdict away from the quota's boundary differs", 0.0
+    inr = acc & (choice >= 0) & (choice < N)
+    nodes = choice[inr].to(torch.int64)
+    if not torch.equal(cap, rem_cap - torch.bincount(
+            nodes, minlength=N).to(rem_cap.dtype)):
+        return "rem_cap does not lose the accepted bids", 0.0
+    want = load.double().index_add(0, nodes, cost[inr].double())
+    err = float((lo.double() - want).abs().max()) if N else 0.0
+    if err > 1e-6 * max(1.0, float(want.abs().max())):
+        return f"load off the accepted cost by {err}", err
+    return "", err
+
+
+def accept_bound(K, N) -> "tuple[float, str]":
+    """The least time of one accept launch: per bid the candidate flag,
+    choice, cost and placement read and the verdict and placement written
+    (18 bytes), per node load and capacity read and written (16), and past
+    one pass the carry's 24 bytes a node written, read and rewritten."""
+    from cronsun_tpu_torch.ops import kernels as k
+    chunked = K > k._wf_chunk(N)
+    return bound_ms(18 * K + 16 * N + (72 * N if chunked else 0), 0)
+
+
+def accept_timing(args, is_final=False) -> dict:
+    """The accept kernel's device ms (50 launches behind a spin), its bound,
+    and the plain chain's ms with its stream waits (5 calls)."""
+    from cronsun_tpu_torch.ops import assign
+    from cronsun_tpu_torch.ops import kernels as k
+    cand, choice, cost, load, rem_cap, assigned = args
+    b_ms, b_by = accept_bound(int(cand.shape[0]), int(load.shape[0]))
+    return {"K": int(cand.shape[0]), "N": int(load.shape[0]),
+            "candidates": int(cand.sum()),
+            "ms": cuda_ms(lambda: k.waterfill_accept(
+                cand, choice, cost, load, rem_cap, is_final, assigned), 50),
+            "plain_ms": cuda_ms(lambda: assign.waterfill_accept_plain(
+                cand, choice, cost, load, rem_cap, is_final), 5),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def device_kernels_per_call(fn) -> int:
     """Kernels the card ran for one call (torch.profiler)."""
     import torch
@@ -645,7 +792,24 @@ def phase_kernels(dev):
         table, load, _, _ = _random_tile(J, w32, 500 + seed, dev)
         rows, active = _bucket(K, J, 600 + seed, dev, prefix)
         k1n.append(_check_k1n(k, name, table, load, col0, rows, active))
-    emit({"phase": "kernels", "checks": checks, "k1n_checks": k1n})
+    # the accept kernel: one pass up to 16384 bids, chunks past it
+    acc = []
+    for seed, (name, K, N, cand_p, node_hi) in enumerate((
+            ("accept_one", 1, 10240, 1.0, None),
+            ("accept_k2048", 2048, 10240, 0.7, 512),
+            ("accept_k16384", 16384, 10240, 0.7, 4096),
+            ("accept_k16385", 16385, 10240, 0.7, 4096),
+            ("accept_k65536", 65536, 10240, 0.7, 10240),
+            ("accept_no_candidate", 16384, 10240, 0.0, None),
+            ("accept_one_node", 65536, 10240, 1.0, 1),
+            ("accept_n300000", 20000, 300000, 0.7, 5000))):
+        args = _accept_inputs(K, N, 700 + seed, dev, cand_p, node_hi)
+        if name == "accept_one_node":
+            args[4][0] = K // 3
+        for is_final in (False, True):
+            acc.append(check_accept(name, args, is_final))
+    emit({"phase": "kernels", "checks": checks, "k1n_checks": k1n,
+          "accept_checks": acc})
 
     # times on the synthetic tile: K = 16384, N = 10240, half the bits set,
     # loads in {0..3}, every row active, no gather
@@ -713,6 +877,28 @@ def phase_kernels(dev):
         "work": dict(zip(("bytes", "set_bits", "must_hash"), work_n)),
         "device_kernels_per_call": device_kernels_per_call(
             lambda: k.bid_argmin_natural(packed, load, 5120))})
+    # the accept kernel at the headline cells' buckets, N = 10240
+    at = {K: _accept_inputs(K, 10240, 800 + K, dev, 0.64, None)
+          for K in (16384, 2048, 65536)}
+    empty = (torch.zeros_like(at[2048][0]),) + at[2048][1:]
+    t16k, t2k = accept_timing(at[16384]), accept_timing(at[2048])
+    b_acc, by_acc = accept_bound(16384, 10240)
+    rows.append({
+        "name": "waterfill_accept", "route": "cuda",
+        "source": "cronsun_tpu_torch/csrc/waterfill_accept.cu",
+        "replaces": "none: the eager chain ported from "
+                    "cronsun_tpu/ops/assign.py:331-363 "
+                    "(ops/assign.py::waterfill_accept_plain)",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": t16k["ms"], "plain_ms": t16k["plain_ms"],
+        "bound_ms": b_acc, "bound_by": by_acc, "library_ms": None,
+        "shape": {"K": 16384, "N": 10240},
+        "k2048": t2k, "empty_k2048": accept_timing(empty),
+        "k65536": accept_timing(at[65536]),
+        "work": {"bytes": 18 * 16384 + 16 * 10240},
+        "device_kernels_per_call": device_kernels_per_call(
+            lambda: k.waterfill_accept(*at[16384][:5], False,
+                                       at[16384][5]))})
     emit({"phase": "kernel_times", "shape": {"K": K, "N": w32 * 32},
           "timings": rows})
     return rows
@@ -817,6 +1003,8 @@ def phase_headline(dev, n_windows, profile, J=1 << 20, N=10240,
     counts = k.launch_counts()                  # ... and ends
     if not all(counts[n] for n in SINGLE_DEVICE_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if counts["waterfill_accept"] != 2 * (n_windows + 2) * W:
+        raise AssertionError(f"not one accept launch a round: {counts}")
     per_tick = np.diff(stamps) / W * 1e3
     for i in (0, len(plans) // 2, len(plans) - 1):
         _check_headline(state, plans[i], N)
@@ -881,8 +1069,8 @@ def phase_path_times(p, W, SLA):
     for _ in range(PATH_WINDOWS):
         p.gather_window(p.plan_window_async(epoch_s, W, sla_bucket=SLA))
         epoch_s += W
-    bids, fans = [], []
-    orig = assign.bid_argmin, assign.fanout_add
+    bids, fans, accepts = [], [], []
+    orig = assign.bid_argmin, assign.fanout_add, assign.accept_kernel
 
     def bid(packed, load_eff, rows=None, active=None):
         bids.append((packed, load_eff.clone(), rows.clone(), active.clone()))
@@ -892,11 +1080,18 @@ def phase_path_times(p, W, SLA):
         fans.append((packed, weights.clone(), rows.clone()))
         return orig[1](packed, weights, rows=rows)
 
-    assign.bid_argmin, assign.fanout_add = bid, fan
+    def accept(cand, choice, cost, load, rem_cap, is_final, assigned=None):
+        accepts.append((tuple(t.clone() for t in (cand, choice, cost, load,
+                                                  rem_cap, assigned)),
+                        is_final))
+        return orig[2](cand, choice, cost, load, rem_cap, is_final, assigned)
+
+    assign.bid_argmin, assign.fanout_add, assign.accept_kernel = (bid, fan,
+                                                                  accept)
     try:
         p.gather_window(p.plan_window_async(epoch_s, 1, sla_bucket=SLA))
     finally:
-        assign.bid_argmin, assign.fanout_add = orig
+        assign.bid_argmin, assign.fanout_add, assign.accept_kernel = orig
     out = []
     for rnd, (table, load, rows, active) in enumerate(bids, 1):
         best, choice = k.bid_argmin_plain(table, load, rows, active)
@@ -929,8 +1124,28 @@ def phase_path_times(p, W, SLA):
                     "plain_ms": cuda_ms(lambda: k.fanout_add_plain(
                         table, weights, rows), 5),
                     "bound_ms": b_ms, "bound_by": b_by})
-    if len(bids) != 2 or len(fans) != 1:
-        raise AssertionError(f"captured {len(bids)} bids, {len(fans)} fan-outs")
+    # the accept: each round as captured; round 1's first 2048 bids, the
+    # same with no candidate (the Common cell's empty bucket), and its bids
+    # four times over (65536: chunks)
+    n_accepts = len(accepts)
+    if accepts:
+        (cand, choice, cost, load, rem_cap, asg), _ = accepts[0]
+        accepts = accepts + [
+            ((cand[:2048], choice[:2048], cost[:2048], load, rem_cap,
+              asg[:2048]), False),
+            ((torch.zeros_like(cand[:2048]), choice[:2048], cost[:2048],
+              load, rem_cap, asg[:2048]), False),
+            (tuple(t.repeat(4) for t in (cand, choice, cost)) + (
+                load, rem_cap, asg.repeat(4)), False)]
+    for rnd, (args, is_final) in enumerate(accepts, 1):
+        chk = check_accept(f"path_{rnd}", args, is_final)
+        out.append({"name": "waterfill_accept", "case": rnd,
+                    "is_final": bool(is_final),
+                    "accepted": chk["accepted"], "max_abs_err": 0.0,
+                    **accept_timing(args, is_final)})
+    if len(bids) != 2 or len(fans) != 1 or n_accepts != 2:
+        raise AssertionError(f"captured {len(bids)} bids, {len(fans)} "
+                             f"fan-outs, {n_accepts} accepts")
     emit({"phase": "path_times", "table_rows": int(p.elig.shape[0]),
           "advanced_windows": PATH_WINDOWS, "epoch_s": epoch_s,
           "nvidia_smi": nvidia_smi_line(), "timings": out})
@@ -2347,8 +2562,11 @@ class PathCalls:
     that has some, which costs a host read per call until then.  A call
     with ``rows`` keeps the bucket's rows gathered from the table, which
     the plain version reads the same way (the tie hash takes the row's
-    place in the bucket).  :meth:`check` holds them against the plain
-    versions after the run, so no comparison launches a kernel inside it."""
+    place in the bucket).  The accept kernel (``assign.accept_kernel``)
+    keeps its inputs and outputs at each (K, N, is_final) the same way,
+    with work while the kept call had no candidate.  :meth:`check` holds
+    them against the plain versions after the run, so no comparison
+    launches a kernel inside it."""
 
     def __init__(self):
         import threading
@@ -2364,6 +2582,8 @@ class PathCalls:
             for name in names]
         for mod, name, fn in self._orig:
             setattr(mod, name, self._wrap(name, fn, inspect.signature(fn)))
+        self._orig.append((assign, "accept_kernel", assign.accept_kernel))
+        assign.accept_kernel = self._wrap_accept(assign.accept_kernel)
         return self
 
     def __exit__(self, *exc):
@@ -2408,14 +2628,62 @@ class PathCalls:
             return out
         return call
 
+    def _wrap_accept(self, fn):
+        name = "waterfill_accept"
+
+        def call(cand, choice, cost, load, rem_cap, is_final, assigned=None):
+            key = (name, cand.shape[0], load.shape[0], bool(is_final))
+            with self._lock:
+                kept = self._kept.get(key)
+                fresh = kept is None and sum(
+                    c["kernel"] == name for c in self.calls
+                ) < PATH_CALLS_PER_KERNEL
+            if not (fresh or (kept is not None and not kept["work"])):
+                return fn(cand, choice, cost, load, rem_cap, is_final,
+                          assigned)
+            work = bool(cand.any())
+            if not (fresh or work):
+                return fn(cand, choice, cost, load, rem_cap, is_final,
+                          assigned)
+            got = {"kernel": name, "work": work, "is_final": bool(is_final),
+                   "args": tuple(None if t is None else t.clone() for t in (
+                       cand, choice, cost, load, rem_cap, assigned))}
+            out = fn(cand, choice, cost, load, rem_cap, is_final, assigned)
+            got["out"] = tuple(None if t is None else t.clone() for t in out)
+            with self._lock:
+                self.calls = [got if c is kept else c for c in self.calls
+                              ] + ([got] if fresh else [])
+                self._kept[key] = got
+            return out
+        return call
+
+    def _check_accept(self, c, phase) -> dict:
+        """A kept accept call against the plain chain (``accept_differs``):
+        bit for bit where costs and loads are integers, else up to the f32
+        chain's rounding."""
+        import torch
+        cand, choice, cost, load, rem_cap, asg = c["args"]
+        bad, err = accept_differs(c["args"], c["is_final"], c["out"])
+        if bad:
+            raise AssertionError(f"{phase}: waterfill_accept at K "
+                                 f"{len(cand)}, N {len(load)}: {bad}")
+        return {"kernel": c["kernel"], "K": len(cand), "N": len(load),
+                "is_final": c["is_final"], "candidates": int(cand.sum()),
+                "integer_costs": bool(torch.equal(cost, cost.round())),
+                "work": c["work"], "max_abs_err": err}
+
     def check(self, phase) -> list:
         """Each kept call against its plain version: K1 and K1n best and
         choice exactly; K2 exactly on integer weights, else rtol 1e-5 (the
-        two sum in different orders), as phase 3 holds them."""
+        two sum in different orders), as phase 3 holds them; the accept
+        bit for bit."""
         import torch
         from cronsun_tpu_torch.ops import kernels as k
         out = []
         for c in self.calls:
+            if c["kernel"] == "waterfill_accept":
+                out.append(self._check_accept(c, phase))
+                continue
             tile, vec, act = c["tile"], c["vec"], c["active"]
             where = (f"{phase}: {c['kernel']} at K {len(tile)}, "
                      f"W32 {tile.shape[1]}, col0 {c['col0']}")

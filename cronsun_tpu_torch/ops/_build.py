@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  Libraries go to ``build/kernels/`` at the checkout's root, named by
-a hash of the source and the flags, and are built at first use; nothing is
+a hash of the source and the flags, and are built at first use (the first
+kernel used builds all of :data:`KERNELS` that are missing); nothing is
 built or imported when this module is imported (hosts without the CUDA
 toolkit import it too).  :func:`build` starts one ``nvcc`` per missing
 library, all at once.
@@ -24,7 +25,7 @@ from typing import Dict, Sequence
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-KERNELS = ("bid_argmin", "fanout_add")
+KERNELS = ("bid_argmin", "fanout_add", "waterfill_accept")
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,7 +94,8 @@ def kernel_function(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            # the first kernel used builds every missing one, in parallel
+            build(KERNELS if name in KERNELS else [name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)

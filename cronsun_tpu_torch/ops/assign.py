@@ -18,6 +18,24 @@ with repeated indices run as float atomics on the card, in an order that
 changes run to run; here each node's accepted cost is instead summed along
 the sort the ranking already computed, and each node is written once.
 
+**The accept's two routes.**  On the card every round is one launch of
+the accept kernel (:func:`.kernels.waterfill_accept`, ``accept_kernel``
+here), which reads nothing back, at every bucket size; on the CPU it is
+the plain chain (:func:`waterfill_accept_plain`), whose per-node totals
+wait for the stream three times.  The same function either way: equal bit
+for bit where the sums of costs are exact.
+
+**The waterfill level** is one definition on every route of the port —
+the plain chain, the kernel, and the mesh's presplit accept
+(:func:`waterfill_accept_presplit`): the loads of the open nodes and the
+candidates' costs are each summed in f64 and rounded once to f32, then
+added and divided by the open nodes.  Such a sum does not depend on its
+order while it is exact in f64 (integer loads below 2^53), so the routes,
+the devices and the sharded reconcile agree at any load.  The JAX package
+sums in f32 (``cronsun_tpu/ops/assign.py:353``): the same level while the
+f32 sums are exact (integer loads summing below 2^24), and above that its
+level carries the f32 sums' rounding, a few units in the last place.
+
 The mesh planners' bucket-sharded reconcile (:mod:`..parallel.mesh`) uses
 :func:`local_bid_demand`, :func:`compact_demand`, :func:`scatter_demand` and
 :func:`waterfill_accept_presplit`: each shard ranks its own candidates and
@@ -30,11 +48,12 @@ from __future__ import annotations
 import torch
 
 from .kernels import bid_argmin, bid_block_plain, fanout_add, unpack_tile
+from .kernels import waterfill_accept as accept_kernel
 from .spans import SYNC, span
 
 __all__ = ["assign", "unpack_tile", "bid_block_plain", "choose_impl",
-           "local_bid_demand", "compact_demand", "scatter_demand",
-           "waterfill_accept_presplit"]
+           "waterfill_accept", "waterfill_accept_plain", "local_bid_demand",
+           "compact_demand", "scatter_demand", "waterfill_accept_presplit"]
 
 
 def choose_impl(device: torch.device) -> str:
@@ -81,15 +100,16 @@ def _segment_totals(sorted_key, first, in_range, *vals_sorted):
     return keys, tots
 
 
-def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
-    """One accept step: ration candidate bids per node.
+def _f64_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` taken in f64 and rounded once to f32: the waterfill
+    level's sums."""
+    return x.sum(dtype=torch.float64).to(torch.float32)
 
-    Accept per node only up to remaining capacity AND (unless final) a
-    waterfill quota — the global target load level — so a min-load node is
-    never dogpiled; rank 0 always lands (progress guarantee).
 
-    Returns (accept [K] bool, new load [N'], new rem_cap [N']); the inputs
-    are not modified."""
+def waterfill_accept_plain(cand, choice, cost, load, rem_cap,
+                           is_final: bool):
+    """:func:`waterfill_accept` as a chain of PyTorch calls: the CPU's
+    route, and what the card's kernel is held to."""
     K = cand.shape[0]
     n_padded = load.shape[0]
     key = torch.where(cand, choice.to(torch.int64), n_padded)
@@ -100,7 +120,8 @@ def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
     w = torch.where(cand, cost, 0.0)
     open_n = rem_cap > 0
     n_open = open_n.sum().clamp(min=1)
-    level = (torch.where(open_n, load, 0.0).sum() + w.sum()) / n_open
+    # each sum in f64, rounded once to f32 (the module's docstring)
+    level = (_f64_sum(torch.where(open_n, load, 0.0)) + _f64_sum(w)) / n_open
     w_sorted = w[order]
     cum_excl = torch.cumsum(w_sorted, 0) - w_sorted
     cum_in_seg = cum_excl - cum_excl[first]
@@ -124,6 +145,33 @@ def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
     return accept, load, rem_cap
 
 
+def _accept_round(cand, choice, cost, load, rem_cap, is_final: bool,
+                  assigned=None):
+    """:func:`waterfill_accept` by its route; with ``assigned`` also the
+    placements ``where(accept, choice, assigned)`` (else None)."""
+    if cand.device.type == "cuda":
+        return accept_kernel(cand, choice, cost, load, rem_cap, is_final,
+                             assigned)
+    accept, load, rem_cap = waterfill_accept_plain(cand, choice, cost, load,
+                                                   rem_cap, is_final)
+    if assigned is not None:
+        assigned = torch.where(accept, choice, assigned)
+    return accept, load, rem_cap, assigned
+
+
+def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool):
+    """One accept step: ration candidate bids per node.
+
+    Accept per node only up to remaining capacity AND (unless final) a
+    waterfill quota — the global target load level — so a min-load node is
+    never dogpiled; rank 0 always lands (progress guarantee).
+
+    Returns (accept [K] bool, new load [N'], new rem_cap [N']); the inputs
+    are not modified.  On the card one kernel launch, on the CPU the plain
+    chain."""
+    return _accept_round(cand, choice, cost, load, rem_cap, is_final)[:3]
+
+
 def _assign_excl(valid, elig_packed, load, rem_cap, cost, rounds: int,
                  rows=None):
     """Bid/accept rounds for a bucket of EXCLUSIVE fired jobs only (the
@@ -142,9 +190,8 @@ def _assign_excl(valid, elig_packed, load, rem_cap, cost, rounds: int,
                                       active=active)
             cand = active & torch.isfinite(best)
         with span("cronsun.assign.accept"):
-            accept, load, rem_cap = waterfill_accept(
-                cand, choice, cost, load, rem_cap, r == rounds - 1)
-            assigned = torch.where(accept, choice, assigned)
+            _, load, rem_cap, assigned = _accept_round(
+                cand, choice, cost, load, rem_cap, r == rounds - 1, assigned)
     return assigned, load, rem_cap
 
 
@@ -283,7 +330,8 @@ def waterfill_accept_presplit(cand, choice, cost, load, rem_cap, is_final,
     :func:`waterfill_accept` — ``rank < rem_cap`` capacity rationing,
     waterfill quota against the global target level, rank-0 progress —
     evaluated per shard instead of on a gathered bucket.  Exact whenever
-    the cost sums are (integer costs).
+    the cost sums are (integer costs).  ``tot_w`` is the bucket's candidate
+    cost, summed in f64 (the level of the module's docstring).
 
     Returns accept [K] bool; the caller owns the load/rem_cap update."""
     n_padded = load.shape[0]
@@ -291,7 +339,8 @@ def waterfill_accept_presplit(cand, choice, cost, load, rem_cap, is_final,
     cap_at = rem_cap[safe]
     open_n = rem_cap > 0
     n_open = open_n.sum().clamp(min=1)
-    level = (torch.where(open_n, load, 0.0).sum() + tot_w) / n_open
+    level = (_f64_sum(torch.where(open_n, load, 0.0))
+             + tot_w.to(torch.float32)) / n_open
     w = torch.where(cand, cost, 0.0)
     headroom = level - load[safe]
     fits = (rank_g == 0) | (cum_g + w <= headroom)

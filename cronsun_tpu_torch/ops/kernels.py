@@ -25,6 +25,13 @@ PyTorch's own device-side index assert).  K1 also takes ``active`` [K]
 bool: an inactive row reads nothing and gives (+inf, 0); K2's zero weights
 play that part.  Without them each computes the TPU kernel's function on
 every row of ``packed``.
+
+The accept kernel :func:`waterfill_accept` (``csrc/waterfill_accept.cu``)
+ports no TPU kernel: it is the accept step of :mod:`.assign` in one launch,
+at every bucket size.  Its plain version is
+``assign.waterfill_accept_plain``, and ``assign.waterfill_accept`` routes
+by device, so the wrapper here takes CUDA tensors only.  Its ``launches``
+count sits in :func:`launch_counts` beside the bid's and the fan-out's.
 """
 
 from __future__ import annotations
@@ -373,7 +380,75 @@ def fanout_add(packed: torch.Tensor, weights: torch.Tensor,
 
 fanout_add.launches = 0
 
-WRAPPERS = (bid_argmin, bid_argmin_natural, fanout_add)
+# csrc/waterfill_accept.cu: one pass of its block takes this many bids
+_WF_CHUNK = 16384
+_WF_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _wf_chunk(n: int) -> int:
+    """Bids one pass of the accept kernel takes over ``n`` nodes: the
+    32-bit sort key holds the node (``n`` for a non-candidate) above the
+    bid's index within the pass."""
+    return min(_WF_CHUNK, 1 << (32 - n.bit_length()))
+
+
+def waterfill_accept(cand, choice, cost, load, rem_cap, is_final: bool,
+                     assigned=None):
+    """One waterfill accept round on the card, in one launch
+    (``csrc/waterfill_accept.cu``): the function of
+    :func:`..assign.waterfill_accept_plain`, and with ``assigned`` the
+    placements ``where(accept, choice, assigned)``, into fresh outputs.
+
+    Args:
+      cand: [K] bool; choice: [K] int32 node in [0, N) (a candidate
+        outside it is never accepted); cost: [K] f32.
+      load: [N] f32; rem_cap: [N] int32 — not modified.
+      is_final: the last round (no waterfill quota).
+      assigned: optional [K] int32.
+    Returns: (accept [K] bool, load [N] f32, rem_cap [N] int32,
+      assigned [K] int32 or None).  CUDA tensors only; there is no CPU
+      mode.  A bucket above one pass (16384 bids at most) is taken in
+      chunks within the launch, over a per-node scratch of 24 bytes.
+    """
+    K, N = cand.shape[0], load.shape[0]
+    for name, t, dtype, n in (("cand", cand, torch.bool, K),
+                              ("choice", choice, torch.int32, K),
+                              ("cost", cost, torch.float32, K),
+                              ("load", load, torch.float32, N),
+                              ("rem_cap", rem_cap, torch.int32, N),
+                              ("assigned", assigned, torch.int32, K)):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.dim() != 1 or t.shape[0] != n:
+            raise TypeError(f"waterfill_accept: {name} must be a [{n}] "
+                            f"{dtype} vector, got {t.dtype} {tuple(t.shape)}")
+        if t.device != cand.device or t.device.type != "cuda":
+            raise ValueError(f"waterfill_accept: {name} on {t.device}; the "
+                             f"kernel takes CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("waterfill_accept: the kernel takes contiguous "
+                             "tensors")
+    if N < 1:
+        raise ValueError("waterfill_accept: no node")
+    dev = cand.device
+    accept = torch.empty(K, dtype=torch.bool, device=dev)
+    load_o = torch.empty_like(load)
+    cap_o = torch.empty_like(rem_cap)
+    asg_o = None if assigned is None else torch.empty_like(assigned)
+    carry = (torch.empty((N, 3), dtype=torch.float64, device=dev)
+             if K > _wf_chunk(N) else None)
+    _launch("waterfill_accept", "waterfill_accept", _WF_ARGS, dev,
+            cand.data_ptr(), choice.data_ptr(), cost.data_ptr(),
+            load.data_ptr(), rem_cap.data_ptr(), _ptr(assigned),
+            accept.data_ptr(), load_o.data_ptr(), cap_o.data_ptr(),
+            _ptr(asg_o), _ptr(carry), K, N, int(bool(is_final)))
+    waterfill_accept.launches += 1
+    return accept, load_o, cap_o, asg_o
+
+
+waterfill_accept.launches = 0
+
+WRAPPERS = (bid_argmin, bid_argmin_natural, fanout_add, waterfill_accept)
 
 
 def reset_launch_counts() -> None:

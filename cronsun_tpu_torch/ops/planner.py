@@ -13,9 +13,10 @@ matrix and the per-node loads and capacities on one device, and answers
 The per-second loop carries ``load`` and ``rem_cap``; every op in it is
 functional, so a dispatched window never writes the planner's live tensors —
 the window's results are assigned back once, in dispatch order.  On the card
-:meth:`TickPlanner.plan_window_async` reads no tensor value back, but
-``waterfill_accept``'s boolean-mask selections each run a ``nonzero``, which
-waits for the stream (three per bid round).  The outputs of the whole window
+:meth:`TickPlanner.plan_window_async` reads no tensor value back: each accept
+round is one kernel launch (``ops.assign``), and the one wait for the
+stream is the window's pageable upload of the field matrix.  The outputs of
+the whole window
 are packed into one int32 block and copied to pinned host memory behind an
 event, which :meth:`TickPlanner.gather_window` waits on.
 

@@ -29,7 +29,9 @@ the scheduler's metrics publish them.
 that blocks the host on the card's stream (a boolean-mask selection runs
 a ``nonzero``; a pageable host-to-device copy waits for the stream): one
 such span is one stream wait.  The spans are the same on the CPU, where
-nothing waits, so a count there is the count the card would make.
+nothing waits, so a count there is the count the card would make, but
+for the accept: the CPU's is the plain chain, whose per-node totals wait
+three times a round, and the card's one kernel launch waits for nothing.
 
 **One clock.**  :attr:`SpanRecorder.anchor` pairs ``time.time_ns()`` with
 ``time.perf_counter_ns()``; :meth:`SpanRecorder.wall_ns` maps a span's

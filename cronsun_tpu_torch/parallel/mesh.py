@@ -198,7 +198,7 @@ def _reconcile_sharded(cx, cand, choice, cost, load, rem_cap, is_final,
         d = cx.axis_index(s, axis)
         prefix = (_shard_sum(g[:d]) if d else
                   torch.zeros_like(g[0]))
-        tot_w = g[:, 1, :].sum()
+        tot_w = g[:, 1, :].sum(dtype=torch.float64)
         safe = choice[s].to(torch.int64).clamp(0, n_padded - 1)
         rank_g = prefix[0][safe].to(torch.int32) + rank_l
         cum_g = prefix[1][safe] + cum_l
@@ -874,7 +874,7 @@ class _ShardedPlannerBase:
                                                      self.N)
                 return waterfill_accept_presplit(
                     cand, choice, cost, loadN, cap, False, rank, cum,
-                    demand[1].sum())
+                    demand[1].sum(dtype=torch.float64))
         else:
             vals = [[torch.zeros(k_local, dtype=dt, device=sh.device)
                      for sh in self._shards]

@@ -4517,13 +4517,17 @@ class SchedulerService:
     def _planner_totals(self) -> dict:
         """The planner's running span totals (:mod:`..ops.spans`): host ms
         launching windows, the stream waits on the dispatch path and their
-        ms, and the ms gathers waited for a window to land.  A planner
-        without spans (the mesh planners) reads 0."""
+        ms, the ms gathers waited for a window to land, and the accept
+        rounds (``cronsun.assign.accept`` spans) by the route the planner's
+        device gives them: one kernel launch on the card, the plain chain
+        on the CPU.  A planner without spans (the mesh planners) reads 0."""
         rec = getattr(self.planner, "spans", None)
         t = rec.totals.snapshot() if rec is not None else {}
 
         def get(name, key):
             return t.get(name, {}).get(key, 0)
+        accepts = get("cronsun.assign.accept", "count")
+        on_card = rec is not None and self.planner.device.type == "cuda"
         return {
             "planner_dispatch_ms_total": get("cronsun.plan.dispatch",
                                              "total_ms"),
@@ -4531,6 +4535,8 @@ class SchedulerService:
             "planner_sync_wait_ms_total": get(SYNC, "total_ms"),
             "planner_gather_wait_ms_total": get("cronsun.plan.gather.wait",
                                                 "total_ms"),
+            "planner_accept_kernel_total": accepts if on_card else 0,
+            "planner_accept_plain_total": 0 if on_card else accepts,
         }
 
     def smear_snapshot(self) -> dict:

@@ -184,7 +184,7 @@ def test_wrappers_count_kernel_launches(cuda):
     k.fanout_add(packed, torch.ones(64, device=cuda))
     k.fanout_add(packed, torch.ones(64, device=cuda))
     assert k.launch_counts() == {"bid_argmin": 1, "bid_argmin_natural": 1,
-                                 "fanout_add": 2}
+                                 "fanout_add": 2, "waterfill_accept": 0}
     with pytest.raises(ValueError):
         k.bid_argmin(packed[:, :1], load[:32].clone())   # not contiguous
 

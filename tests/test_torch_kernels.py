@@ -17,7 +17,7 @@ from cronsun_tpu.ops.assign import _bid_jnp, _fanout_jnp, bid_block_jnp
 from cronsun_tpu.ops.pallas_kernels import _tie as jax_tie
 from cronsun_tpu.ops.pallas_kernels import bid_argmin as jax_bid
 from cronsun_tpu.ops.pallas_kernels import fanout_add as jax_fanout
-from cronsun_tpu_torch.ops import kernels
+from cronsun_tpu_torch.ops import assign, kernels
 from cronsun_tpu_torch.ops.kernels import (
     _tie, bid_argmin, bid_block_plain, fanout_add, fanout_chunks)
 from torch_k1_model import k1_model, tie_from_bits
@@ -135,9 +135,14 @@ def test_plain_path_counts_no_launches():
     bid_argmin(bits(packed), torch.from_numpy(load))
     kernels.bid_argmin_natural(bits(packed), torch.from_numpy(load), 64)
     fanout_add(bits(packed), torch.ones(256))
+    assign.waterfill_accept(torch.ones(256, dtype=torch.bool),
+                            torch.zeros(256, dtype=torch.int32),
+                            torch.ones(256), torch.zeros(64),
+                            torch.ones(64, dtype=torch.int32), False)
     assert kernels.launch_counts() == {"bid_argmin": 0,
                                        "bid_argmin_natural": 0,
-                                       "fanout_add": 0}
+                                       "fanout_add": 0,
+                                       "waterfill_accept": 0}
 
 
 @pytest.mark.parametrize("K,w32", [(2048, 320), (16384, 320), (65536, 320),

@@ -194,7 +194,8 @@ def test_port_sched_in_a_jax_fleet_runs_each_second_once(tmp_path):
         counts = [ln for ln in sched.lines if "kernel launch counts" in ln]
         assert counts, sched.output()
         assert set(json.loads(counts[-1].split("counts: ", 1)[1])) == {
-            "bid_argmin", "bid_argmin_natural", "fanout_add"}
+            "bid_argmin", "bid_argmin_natural", "fanout_add",
+            "waterfill_accept"}
     finally:
         fleet.close()
 
