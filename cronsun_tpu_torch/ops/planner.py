@@ -49,6 +49,7 @@ taken: the step reads none of its tensors and issues none of its ops.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -62,9 +63,10 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from .assign import _assign_excl, _fanout_load, choose_impl
 from .deps import NEVER, dep_ready
+from .kernels import fanout_add
 from .schedule_table import (ScheduleTable, build_table, column_numpy,
                              column_tensor, table_to_numpy, update_rows)
-from .spans import SYNC, SpanRecorder, Window, span
+from .spans import RELEASE, SYNC, UNPLACED, SpanRecorder, Window, span
 from .tenancy import TenantOrder, admit
 from .tick import _fire_mask, window_field_matrix
 
@@ -297,7 +299,10 @@ class TickPlanner:
     Capacity model: ``rem_cap[n]`` is the node's remaining concurrency
     budget for exclusive placements.  The solve reserves a slot at plan time;
     executors release it with :meth:`job_finished`.  Common fan-out runs
-    contribute load only (released with :meth:`common_finished`).
+    contribute load only (released with :meth:`common_finished`).  A fleet
+    whose runs end by the thousand a second releases them in bulk
+    (:meth:`jobs_finished`, :meth:`commons_finished`): one upload and a few
+    launches a call, no wait for the stream.
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     PyTorch path.  Eligibility rows are int32 bit patterns of the uint32
@@ -365,6 +370,9 @@ class TickPlanner:
         self._warmed_single: set = set()
         # the spans of the windows it planned, and their running totals
         self.spans = SpanRecorder()
+        # pinned host buffers of the bulk releases' uploads, each kept
+        # until the event recorded behind its copy has passed
+        self._uploads: collections.deque = collections.deque()
 
     # -- state maintenance (fixed-shape, in-place scatters) -----------------
 
@@ -587,6 +595,83 @@ class TickPlanner:
         with self.issuing():
             self.load[node_col] -= float(cost)
 
+    def _upload(self, *parts: np.ndarray) -> torch.Tensor:
+        """``parts`` (int32 arrays, or another dtype's bits viewed as int32)
+        end to end in one int32 tensor on the planner's device, without
+        waiting for the stream: on the card they are written into a pinned
+        buffer, whose copy runs behind the work already issued, and the
+        buffer is kept until an event recorded behind the copy has passed.
+        The caller holds :meth:`issuing`."""
+        on_card = self._stream is not None
+        host = torch.empty(sum(len(x) for x in parts), dtype=torch.int32,
+                           pin_memory=on_card)
+        h, i = host.numpy(), 0
+        for x in parts:
+            h[i:i + len(x)] = x
+            i += len(x)
+        if not on_card:
+            return host
+        out = host.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._uploads.append((done, host))
+        while self._uploads and self._uploads[0][0].query():
+            self._uploads.popleft()
+        return out
+
+    def jobs_finished(self, cols, costs) -> None:
+        """Exclusive executions completed, in bulk: for each entry one slot
+        back to ``rem_cap[cols[i]]`` and ``costs[i]`` off its load;
+        repeated columns add up.  A loop of :meth:`job_finished`, bit for
+        bit where the sums of the costs are exact (integer costs).
+
+        The host sums the entries by column (costs in float64, rounded once
+        to float32) and uploads the two [N] deltas in one buffer
+        (:meth:`_upload`); two element-wise ops apply them.  It issues like
+        every setter: after the windows already dispatched, before the
+        next."""
+        cols = np.asarray(cols, np.int64).ravel()
+        if not len(cols):
+            return
+        if cols.min() < 0 or cols.max() >= self.N:
+            raise IndexError(f"jobs_finished: columns must lie in "
+                             f"[0, {self.N})")
+        w = np.broadcast_to(np.asarray(costs, np.float64), cols.shape)
+        slots = np.bincount(cols, minlength=self.N).astype(np.int32)
+        load = np.bincount(cols, weights=w, minlength=self.N).astype(
+            np.float32)
+        with self.lock, span(RELEASE, self.spans.ahead()), self.issuing():
+            delta = self._upload(slots, load.view(np.int32))
+            self.rem_cap += delta[:self.N]
+            self.load -= delta[self.N:].view(torch.float32)
+
+    def commons_finished(self, rows, costs) -> None:
+        """Common (fan-out) executions completed, in bulk: each row's cost
+        retired from every node it is eligible for now, as one fan-out
+        (K2 on the card, the plain fan-out on the CPU) subtracted from the
+        load.  A loop of :meth:`common_finished` over each row's eligible
+        nodes, bit for bit where the sums are exact (integer costs).
+
+        It assumes the rows' eligibility has not changed since they fired
+        (what the fan-out added is what it takes off).  It issues like
+        every setter: after the windows already dispatched, before the
+        next."""
+        rows = np.asarray(rows).ravel()
+        if not len(rows):
+            return
+        if rows.dtype.kind not in "iu":
+            raise TypeError(f"commons_finished: rows must be integers, got "
+                            f"{rows.dtype}")
+        if rows.min() < 0 or rows.max() >= self.J:
+            raise IndexError(f"commons_finished: rows must lie in "
+                             f"[0, {self.J})")
+        w = np.broadcast_to(np.asarray(costs, np.float32), rows.shape)
+        K = len(rows)
+        with self.lock, span(RELEASE, self.spans.ahead()), self.issuing():
+            up = self._upload(rows, w.view(np.int32))
+            self.load -= fanout_add(self.elig, up[K:].view(torch.float32),
+                                    rows=up[:K])
+
     def decay_load(self, factor: float = 0.99):
         with self.issuing():
             self.load = self.load * factor
@@ -659,7 +744,8 @@ class TickPlanner:
         with self._bucket_mu:
             kx = self._bx.size(sla_x)
             kc = self._bc.size(sla_c)
-        win = self.spans.window(epoch_s, window_s)
+        with self.lock:     # it takes over what was recorded ahead of it
+            win = self.spans.window(epoch_s, window_s)
         with span("cronsun.plan.dispatch", win), self.issuing():
             handle, self.load, self.rem_cap, last_fire, tokens = \
                 self._dispatch(epoch_s, window_s, kx, kc)
@@ -687,11 +773,13 @@ class TickPlanner:
             oa = np.ascontiguousarray(o[:, a0:a1]).view(handle.adt)[:, :kx]
             ot = o[:, a1:].reshape(W, 2, handle.nt) if handle.nt else None
             plans = []
+            unplaced = 0
             for w in range(W):
                 xt, ct = int(o[w, 0]), int(o[w, 1])
                 nx, nc = min(xt, kx), min(ct, kc)
                 fired = np.concatenate([o[w, 2:2 + nx],
                                         o[w, 2 + kx:2 + kx + nc]])
+                unplaced += int(np.count_nonzero(oa[w, :nx] < 0))
                 assigned = np.concatenate(
                     [oa[w, :nx].astype(np.int32), np.full(nc, -1, np.int32)])
                 plans.append(TickPlan(
@@ -705,6 +793,8 @@ class TickPlanner:
                 with self._bucket_mu:
                     self._bx.feed(int(o[:, 0].max()), W)
                     self._bc.feed(int(o[:, 1].max()), W)
+            if handle.window is not None:
+                handle.window.count(UNPLACED, unplaced)
         return plans
 
     def plan_window(self, epoch_s: int, window_s: int,

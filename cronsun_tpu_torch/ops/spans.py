@@ -19,11 +19,14 @@ second)``: the dispatch opens it (``span(name, window)``) and every span
 opened under it on that thread joins it; the gather reopens it from the
 handle, on whatever thread gathers.  A span opened outside any window
 (a warm-up dispatch, the mesh planners' reconcile) records nothing; it
-still opens its range under a profiler.  The recorder keeps the newest
-:data:`RING_WINDOWS` windows (a ring: nothing grows over a run), and sums
-each span name's count and time in an :class:`~..metrics.OpStats`
-(:attr:`SpanRecorder.totals`) as each window's dispatch and gather end;
-the scheduler's metrics publish them.
+still opens its range under a profiler.  Work issued between two windows
+(a bulk release, ``cronsun.release``) is recorded in
+:meth:`SpanRecorder.ahead`, which the next window takes over when it is
+made: such spans belong to the window they precede.  The recorder keeps
+the newest :data:`RING_WINDOWS` windows (a ring: nothing grows over a
+run), and sums each span name's count and time in an
+:class:`~..metrics.OpStats` (:attr:`SpanRecorder.totals`) as each
+window's dispatch and gather end; the scheduler's metrics publish them.
 
 **Stream waits.**  ``cronsun.sync`` wraps each call on the dispatch path
 that blocks the host on the card's stream (a boolean-mask selection runs
@@ -32,6 +35,11 @@ such span is one stream wait.  The spans are the same on the CPU, where
 nothing waits, so a count there is the count the card would make, but
 for the accept: the CPU's is the plain chain, whose per-node totals wait
 three times a round, and the card's one kernel launch waits for nothing.
+
+**Counters.**  A window also counts what its spans do not time
+(:meth:`Window.count`, read from :attr:`Window.counts`): the exclusive
+fires the window left unplaced (:data:`UNPLACED`, counted by its gather
+from the output it copied).
 
 **One clock.**  :attr:`SpanRecorder.anchor` pairs ``time.time_ns()`` with
 ``time.perf_counter_ns()``; :meth:`SpanRecorder.wall_ns` maps a span's
@@ -62,10 +70,13 @@ from ..metrics import OpStats
 RING_WINDOWS = 2048
 SYNC = "cronsun.sync"
 GATHER = "cronsun.plan.gather"
+RELEASE = "cronsun.release"
 NAMES = ("cronsun.plan.dispatch", "cronsun.fire_mask", "cronsun.deps",
          "cronsun.tenants", "cronsun.compact", "cronsun.fanout",
          "cronsun.assign", "cronsun.assign.bid", "cronsun.assign.accept",
-         SYNC, GATHER, "cronsun.plan.gather.wait")
+         SYNC, GATHER, "cronsun.plan.gather.wait", RELEASE)
+# a window's counter
+UNPLACED = "cronsun.unplaced"
 _CODE = {n: i for i, n in enumerate(NAMES)}
 _GATHER = _CODE[GATHER]
 _FIELDS = 5          # a span in Window.rec: code, start, end, parent, profiled
@@ -90,15 +101,27 @@ class Window:
     ints a span (code, start, end, parent, profiled); the gather's end
     folds it into the totals and packs it into an ``array('q')``."""
 
-    __slots__ = ("id", "seconds", "profiled", "rec", "_folded", "_totals")
+    __slots__ = ("id", "seconds", "profiled", "rec", "counts", "_folded",
+                 "_totals")
 
     def __init__(self, wid, seconds: int, totals: OpStats):
         self.id = wid
         self.seconds = seconds
         self.profiled = False        # a span of it opened under a profiler
         self.rec: list = []
+        self.counts: dict = {}       # counter name -> count
         self._folded = 0             # records already in the totals
         self._totals = totals
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the window's counter ``name``."""
+        self.counts[name] = self.counts.get(name, 0) + int(n)
+
+    def _adopt(self, ahead: "Window") -> None:
+        """Take over the spans recorded ahead of this window (they were
+        folded into the totals as they closed)."""
+        self.rec, self._folded = ahead.rec, ahead._folded
+        self.profiled = ahead.profiled
 
     def spans(self) -> List[Span]:
         r = self.rec
@@ -151,11 +174,24 @@ class SpanRecorder:
         self.totals = OpStats()
         self.anchor = _anchor()
         self._ring: collections.deque = collections.deque(maxlen=windows)
+        self._ahead: Optional[Window] = None
         _newest = self
 
+    def ahead(self) -> Window:
+        """Where spans recorded between windows go: the next
+        :meth:`window` takes them over.  The caller serializes this with
+        :meth:`window` (the planner holds its lock for both)."""
+        if self._ahead is None:
+            self._ahead = Window(None, 0, self.totals)
+        return self._ahead
+
     def window(self, epoch_s: int, seconds: int) -> Window:
-        """A new window, in the ring (the oldest falls out)."""
+        """A new window, in the ring (the oldest falls out), holding what
+        was recorded :meth:`ahead` of it."""
         w = Window((self.serial, int(epoch_s)), int(seconds), self.totals)
+        if self._ahead is not None:
+            w._adopt(self._ahead)
+            self._ahead = None
         self._ring.append(w)
         return w
 
